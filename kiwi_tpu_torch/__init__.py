@@ -13,9 +13,11 @@ Dtype policy (the reference's, kiwi_tpu/__init__.py):
   same reason).  These two flags are the package's only import-time side
   effect; Engine re-asserts them on CUDA.
 
-The slice ported so far is the shared-kinematics point sweep
+Ported so far: the shared-kinematics point sweep
 (Engine.sweep_global_misfits through the fused synthesis + floating-scan
-kernel, ops/float_scan.py); see README.md.
+kernel, ops/float_scan.py) and the finite-source batches
+(Engine.misfits_for_source_batch through the window synthesis kernel,
+ops/synth_window.py, and the scan kernel); see README.md.
 """
 
 import torch as _torch

@@ -1,17 +1,25 @@
 """Session engine: source + GF store + receivers -> seismograms -> misfits
-(port of the point-sweep subset of kiwi_tpu/engine.py).
+(port of the floating-norm subset of kiwi_tpu/engine.py).
 
 One object holds the configured database, receiver set, source and misfit
 setup.  Configuration changes invalidate a "plan" (static window/probe
 geometry, the device-resident GF window and reference context, and the
 forward closures); source parameter changes are new inputs to the same
-plan, and a whole sweep of sources is evaluated in one batched forward.
+plan, and a whole batch of sources is evaluated in one batched forward.
 
-This slice covers the shared-kinematics sweep through the fused synthesis +
-floating-scan kernel (ops/float_scan.py) and the synthetic reference.  Plans
-outside it raise NotImplementedError naming the ROADMAP.md item that brings
-them: there is no unfused fallback, since that path needs the scan_sums
-kernel, which is not ported yet.
+Three forwards, as in the JAX package:
+* shared kinematics (all sources of a batch at the same centroid positions
+  and times, e.g. a strike sweep of a point source): the synthesis
+  contraction fused into the scan kernel (ops/float_scan.fused_scan_sums);
+* shared kinematics the fused kernel cannot take (contraction depth
+  C*ng > 64, e.g. a slip-rake sweep of a finite fault): a float32 matmul,
+  then the scan;
+* everything else (finite faults whose strike, dip or size vary): the
+  window synthesis kernel (ops/synth_window.py), then the scan kernel
+  (ops/float_scan.scan_sums) on unfiltered plans or the masked plain-torch
+  evaluation (misfit.evaluate_misfits) on filtered ones.
+Plans outside them raise NotImplementedError naming the ROADMAP.md item
+that brings them; nothing is computed some other way.
 
 Units: latitudes/longitudes in degrees, distances/depths in meters, times
 in seconds.  Tensors live on `Engine(store, device=...)`'s device.
@@ -30,6 +38,7 @@ from . import misfit as mf
 from . import synth
 from .gf.store import GFStore
 from .gf.trace import dataspan, fnint
+from .ops import synth_window
 from .ops.float_scan import MAX_T
 from .plf import PLF
 from .sources import get_source_model
@@ -37,9 +46,11 @@ from .sources import get_source_model
 F32 = torch.float32
 
 # an unported case names the ROADMAP.md (queue 1) item that brings it
-_TODO_NONSHARED = ("non-shared (finite-fault) batches and unfused plans need the "
-                   "scan_sums kernel and the non-shared forward: ROADMAP.md queue 1, item 9")
 _TODO_NORMS = "non-floating misfit norms: ROADMAP.md queue 1, item 11"
+_TODO_WINDOW = ("plans outside the window kernel (extended time axis above "
+                f"{synth_window.T_MAX} samples, or a GF store with other than 8 or 10 "
+                "components) need the XLA formulations (synthesize_with_spans & co): "
+                "ROADMAP.md queue 1, item 8")
 
 
 @dataclasses.dataclass
@@ -54,6 +65,10 @@ class Receiver:
 class Engine:
     """A minimizer session on one torch device."""
 
+    # device bytes a batch's per-source transients may take; larger batches
+    # are evaluated in chunks (misfits_for_source_batch)
+    memory_budget = 4 << 30
+
     def __init__(self, store: GFStore | None = None, device="cpu"):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -62,11 +77,15 @@ class Engine:
         self.receivers: list[Receiver] = []
         self.src_lat_deg = None
         self.src_lon_deg = None
+        self.ref_time = 0.0
         self.source_type = None
         self.source_params = None
         self.effective_dt = 1.0
         self.misfit_method = mf.L2NORM
         self.interpolate = False
+        self.xunder = 1
+        self.zunder = 1
+        self.synthetics_factor = 1.0
         self.floating_shiftrange_s = (0.0, 0.0)
         self._per_rec_shiftrange = {}
         # host-side reference traces / tapers / filters, keyed by rc row
@@ -83,6 +102,14 @@ class Engine:
         self.interpolate = bool(on)
         self._invalidate()
 
+    def set_spacial_undersampling(self, xunder: int, zunder: int):
+        """Use every xunder-th distance and zunder-th depth node of the GF
+        store as the bilinear stencil (interpolated sessions only)."""
+        if xunder < 1 or zunder < 1:
+            raise ValueError("invalid undersampling value")
+        self.xunder, self.zunder = int(xunder), int(zunder)
+        self._invalidate()
+
     def set_receivers(self, receivers: list[Receiver]):
         self.receivers = list(receivers)
         self._refs.clear()
@@ -90,9 +117,10 @@ class Engine:
         self._filters.clear()
         self._invalidate()
 
-    def set_source_location(self, lat_deg, lon_deg):
+    def set_source_location(self, lat_deg, lon_deg, ref_time=0.0):
         self.src_lat_deg = float(lat_deg)
         self.src_lon_deg = float(lon_deg)
+        self.ref_time = float(ref_time)
         self._invalidate()
 
     def set_source_params(self, source_type: str, params):
@@ -125,6 +153,12 @@ class Engine:
         for irc, (r, _c) in enumerate(self._rc_layout()):
             if irec is None or r == irec:
                 self._filters[irc] = plf
+        self._invalidate()
+
+    def set_synthetics_factor(self, factor):
+        """Scale every synthetic by `factor` inside the misfits (the misfit
+        setup's syn_factor)."""
+        self.synthetics_factor = float(factor)
         self._invalidate()
 
     def set_floating_shiftrange(self, tmin, tmax, irec=None):
@@ -179,7 +213,7 @@ class Engine:
         geom = self._geometry()
         cfg = synth.plan_config(
             store, geom, extent, depth_range, time_range,
-            interpolate=self.interpolate,
+            interpolate=self.interpolate, xunder=self.xunder, zunder=self.zunder,
         )
         gfd, gfi, gfn = synth.window_arrays(store, cfg, dev)
         ncent = int(np.prod(nshape))
@@ -219,6 +253,7 @@ class Engine:
             setup.set_taper(irc, plf)
         for irc, plf in self._filters.items():
             setup.set_filter(irc, plf)
+        setup.syn_factor[:] = self.synthetics_factor
         for irc, (r, _c) in enumerate(layout):
             setup.enabled[irc] = self.receivers[r].enabled
             tmin, tmax = self._per_rec_shiftrange.get(r, self.floating_shiftrange_s)
@@ -301,20 +336,26 @@ class Engine:
             rot = (torch.gather(basis, 1, chan_rk[..., None].expand(nrec, rc_k, 3))
                    * rc_sign_t.reshape(nrec, rc_k)[..., None])  # [R, K, 3]
 
-        def forward_shared_fused(cbatch, moments, risetime0):
-            """Shared-kinematics forward with the synthesis contraction fused
-            into the scan kernel.  Callers guarantee batch-uniform
-            risetimes and kinematics (row 0 stands for the batch); only
-            the moment tensors cbatch["m"] f32[B, C, 6] differ."""
+        def shared_parts(cbatch):
+            """Shared kinematics (row 0 stands for the batch; only the
+            moment tensors cbatch["m"] f32[B, C, 6] differ): the values rows
+            v [R, C, ng, nt_out], the per-model GF weights wv
+            [R, C, B, 3, ng] and the batch-shared rc spans."""
             cent0 = {k: v[0] for k, v in cbatch.items()}
             kin = synth._centroid_kinematics(cfg, recs, cent0)  # [R, C]
             v = synth.values_matrix(ext, cfg, kin, group_size=group_size)
             lo_, hi_ = synth.physical_spans(gfi, gfn, cfg, kin)
-            # per-model GF weights in [R, C, B, 3, ng]: angle leaves [R, C, 1]
-            # against moment tensors [C, B, 6]
+            # angle leaves [R, C, 1] against moment tensors [C, B, 6]
             angles = {k: kin[k][..., None] for k in ("sin_az", "cos_az", "sin_l", "cos_l")}
             wv = synth.weights_from_angles(angles, cbatch["m"].transpose(0, 1), cfg.ng)
             wv = torch.where(kin["valid"][..., None, None, None], wv, 0.0)
+            return v, wv, lo_[rc_rec_t, span_idx_t], hi_[rc_rec_t, span_idx_t]
+
+        def forward_shared_fused(cbatch, moments, risetime0):
+            """Shared-kinematics forward with the synthesis contraction fused
+            into the scan kernel.  Callers guarantee batch-uniform
+            risetimes and kinematics."""
+            v, wv, lo_rc, hi_rc = shared_parts(cbatch)
             wv = wv.permute(0, 1, 3, 4, 2)  # [R, C, 3, ng, B] (view)
             # rotation + component signs folded into the weights: the
             # synthesis is linear in the (a, r, d) channel axis; exact f32
@@ -330,17 +371,65 @@ class Engine:
                 v_rows = v_all
                 kshare = rc_k
             return mf.evaluate_misfits_floating_fused(
-                ctx, v_rows, wgt_rtb, cfg.out_it0, lo_[rc_rec_t, span_idx_t],
-                hi_[rc_rec_t, span_idx_t], st, nrec, moments,
+                ctx, v_rows, wgt_rtb, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
                 risetime0, rctx, fold_nshift_max=fold_max, any_taper=any_taper,
                 any_filter=any_filter, eval_win=eval_win, k_share=kshare, rids=rc_rec,
             )
+
+        def rc_rows(ard):
+            """ard f32[B, R, 3, nt_out] -> the signed rc component rows [B, RC, nt_out]."""
+            canon = synth.ard_to_components(ard, recs["bazi"], (1, 2, 3, 4, 5))
+            return canon[:, rc_rec_t, rc_chan_t] * rc_sign_t[:, None]
+
+        def eval_batch(syn_rc, lo_rc, hi_rc, moments, risetimes):
+            """The scan kernel on unfiltered plans, the masked per-model
+            evaluation (FFT filter chain) on filtered ones."""
+            evaluate = mf.evaluate_misfits if any_filter else mf.evaluate_misfits_floating_batch
+            return evaluate(ctx, syn_rc, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
+                            risetimes, rctx, fold_nshift_max=fold_max, eval_win=eval_win,
+                            rids=rc_rec)
+
+        def forward_shared_raw(cbatch, moments, risetimes):
+            """Shared-kinematics forward for batches the fused kernel cannot
+            take: the moment contraction as one float32 batched matmul per
+            receiver (TF32 off; an XLA contraction at HIGHEST precision in
+            the JAX package, outside any Pallas kernel), then the scan."""
+            v, wv, lo_rc, hi_rc = shared_parts(cbatch)
+            bsz = wv.shape[2]
+            w2 = wv.permute(0, 2, 3, 1, 4).reshape(nrec, bsz * 3, tprime)
+            ard = torch.bmm(w2, v.reshape(nrec, tprime, cfg.nt_out))  # [R, B*3, nt]
+            ard = ard.reshape(nrec, bsz, 3, cfg.nt_out).transpose(0, 1)
+            return eval_batch(rc_rows(ard), lo_rc, hi_rc, moments, risetimes)
+
+        forward_batch = None
+        if synth_window.usable(cfg):
+            ext_flat = synth_window.pack_ext(ext, cfg)
+            span_tab = synth.span_tables(gfi, gfn, cfg)
+            gw = gsize if ncent % gsize == 0 else 1  # centroids sharing one GF node
+
+            def forward_batch(cbatch, moments, risetimes):
+                """Per-source kinematics -> window kernel -> spans -> eval."""
+                kin = synth._centroid_kinematics(cfg, recs, cbatch)  # [B, R, C]
+                ard = synth_window.synthesize_ard_batch(ext_flat, cfg, kin, gw)
+                lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
+                return eval_batch(rc_rows(ard), lo[:, rc_rec_t, span_idx_t],
+                                  hi[:, rc_rec_t, span_idx_t], moments, risetimes)
+
+        # per-source transient bytes of the batch forwards (kinematics and
+        # packed weights, traces, probes, scan or masked-eval blocks)
+        nrc = len(layout)
+        _i0, wk = mf.eval_window_slice(eval_win, st)
+        per_source_bytes = 4 * (nrec * ncent * 48 + nrec * 9 * cfg.nt_out
+                                + nrc * st.pl * 8 + (s2 - s1 + 1) * nrc * wk * 3)
 
         return {
             "cfg": cfg,
             "rctx": rctx,
             "use_fused_scan": use_fused_scan,
             "forward_shared_fused": forward_shared_fused,
+            "forward_shared_raw": forward_shared_raw,
+            "forward_batch": forward_batch,
+            "per_source_bytes": per_source_bytes,
             "synth_one": synth_one,
         }
 
@@ -355,7 +444,7 @@ class Engine:
         if len(shapes) != 1:
             raise NotImplementedError(
                 f"source batch has mixed grid shapes {shapes}; shape bucketing "
-                "belongs to the grid-search path: ROADMAP.md queue 1, item 9")
+                "belongs to the grid-search path: ROADMAP.md queue 1, item 14")
         return shapes.pop()
 
     def _post_factors(self, model, pb):
@@ -408,15 +497,69 @@ class Engine:
 
     # -- queries --------------------------------------------------------------
 
+    def misfits_for_source_batch(self, params_batch):
+        """(misfits f32[B, RC], norms f32[B, RC], floating_shifts i32[B, R])
+        for parameter rows [B, nparams], tensors on the engine's device.
+
+        Shared-kinematics batches take the fused kernel when it applies,
+        else the matmul forward; all others the window kernel.  Batches
+        whose per-source transients exceed `memory_budget` run in balanced
+        chunks (the last may be shorter; rows give the same result either
+        way)."""
+        if not self._refs:
+            raise RuntimeError("no reference seismograms set")
+        model = get_source_model(self.source_type)
+        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
+        shape = self._batch_shape(model, pb)
+        moments, risetimes = self._post_factors(model, pb)
+        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape,
+                                 self._param_stats(model, pb), gsize=int(shape[-1]))
+        if plan["rctx"] is None:
+            raise NotImplementedError(_TODO_NORMS)
+        shared = pb.shape[0] >= 2 and model.shared_kin_check(pb)
+        if shared and plan["use_fused_scan"] and (risetimes == risetimes[0]).all():
+            fused = plan["forward_shared_fused"]
+
+            def fwd(cb, mts, rts):
+                return fused(cb, mts, rts[0])
+        elif shared:
+            fwd = plan["forward_shared_raw"]
+        elif plan["forward_batch"] is not None:
+            fwd = plan["forward_batch"]
+        else:
+            raise NotImplementedError(_TODO_WINDOW)
+
+        dev = self.device
+        pbt = torch.as_tensor(pb, device=dev)
+        mts = torch.as_tensor(moments, device=dev)
+        rts = torch.as_tensor(risetimes, device=dev)
+        b = pb.shape[0]
+        chunk = max(1, min(b, self.memory_budget // max(plan["per_source_bytes"], 1)))
+        chunk = -(-b // -(-b // chunk))  # balanced chunks
+        outs = [fwd(model.discretize(pbt[i:i + chunk], self.effective_dt, shape),
+                    mts[i:i + chunk], rts[i:i + chunk])
+                for i in range(0, b, chunk)]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def global_misfits_for_source_batch(self, params_batch):
+        """Global misfits f32[B] (minimizer_engine.f90:935-942) for parameter
+        rows [B, nparams]."""
+        m, n, _ = self.misfits_for_source_batch(params_batch)
+        return mf.global_misfit(m, n)
+
     def sweep_global_misfits(self, base_params, col, values):
         """Global misfits g f32[N] (a tensor on the engine's device) for a
         one-column sweep around base_params, values a host array [N].
 
-        The batch never exists on the host: the base row is tiled on the
-        device, column `col` set to `values`, then discretized, synthesized,
-        evaluated through the fused kernel, and reduced to one global misfit
-        per row (minimizer_engine.f90:935-942).  Sweeps outside the
-        shared-kinematics fused design raise NotImplementedError.
+        On the fused shared-kinematics design the batch never exists on the
+        host: the base row is tiled on the device, column `col` set to
+        `values`, then discretized, synthesized, evaluated through the fused
+        kernel, and reduced to one global misfit per row
+        (minimizer_engine.f90:935-942).  Other sweeps (finite faults whose
+        geometry the column moves, deep contractions) go through
+        global_misfits_for_source_batch, as the JAX package's fallback does.
         """
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
@@ -452,7 +595,9 @@ class Engine:
         # risetimes == batch-uniform risetimes (the STF fold of the shared
         # values rows then commutes with the contraction)
         if not (shared and plan["use_fused_scan"] and (r3 == r3[0]).all() and n <= 65536):
-            raise NotImplementedError(_TODO_NONSHARED)
+            pb = np.tile(base, (n, 1))
+            pb[:, col] = values
+            return self.global_misfits_for_source_batch(pb)
         edt = self.effective_dt
         fwd = plan["forward_shared_fused"]
 

@@ -1,13 +1,17 @@
-"""Waveform misfits: the floating-norm main-path subset (port of the parts
-of kiwi_tpu/misfit.py that the point sweep reaches).
+"""Waveform misfits: the floating norms (port of the parts of
+kiwi_tpu/misfit.py that the point sweep and the finite-source batches
+reach).
 
 A "probe" is a power-of-two-length float32 array over a static absolute
 index span [ps0, ps0+pl), with the reference's extension convention: zeros
 left of the data span, last value repeated to the right
 (comparator.f90:59, :264-267).  The floating norms scan a reference-shift
 range and keep the minimum summed misfit per receiver
-(receiver.f90:439-510); their scan sums come from the fused synthesis +
-scan kernel (ops/float_scan.py).
+(receiver.f90:439-510).  Their scan sums come from the fused synthesis +
+scan kernel on shared-kinematics plans, from the scan kernel over
+precomputed synthetics on unfiltered finite-source plans (both in
+ops/float_scan.py), and from plain torch with exact span masks on filtered
+finite-source plans (evaluate_misfits).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops.float_scan import fused_scan_sums
+from .ops.float_scan import fused_scan_sums, scan_sums
 from .plf import PLF
 
 F32 = torch.float32
@@ -249,12 +253,12 @@ def uniform_rec_major(rids, nrec):
 
 
 def fold_stf_weights(risetime, dt, nshift_max):
-    """Boxcar-fold weights f32[2*nshift_max+1] for a post-synthesis rise
-    time (receiver.f90:866-886); integer shifts are k - nshift_max.
-    risetime: f32 scalar tensor."""
+    """Boxcar-fold weights f32[..., 2*nshift_max+1] for post-synthesis rise
+    times (receiver.f90:866-886); integer shifts are k - nshift_max.
+    risetime: f32 tensor of any shape (a scalar gives [K], a batch [B, K])."""
     from .gf.trace import jnint
 
-    risetime = torch.as_tensor(risetime, dtype=F32)
+    risetime = torch.as_tensor(risetime, dtype=F32)[..., None]
     dt = torch.as_tensor(dt, dtype=F32, device=risetime.device)
     k = torch.arange(2 * nshift_max + 1, dtype=F32, device=risetime.device) - nshift_max
     ts = k * dt
@@ -265,15 +269,15 @@ def fold_stf_weights(risetime, dt, nshift_max):
     nlive = 1 + 2 * jnint(0.5 * risetime / dt)
     half = torch.div(nlive - 1, 2, rounding_mode="floor")
     w = torch.where(torch.abs(k) <= half.to(F32), w, 0.0)
-    total = torch.sum(w)
+    total = torch.sum(w, dim=-1, keepdim=True)
     return torch.where(total > 0, w / torch.where(total > 0, total, 1.0),
                        torch.where(k == 0, 1.0, 0.0))
 
 
 def apply_fold(vals, w):
-    """Fold rows [..., NT] with the integer-shift kernel w[K] (K = 2*h+1),
-    edge-extended like strip_fold + trace_multiply_add:
-    out[j] = sum_k w[k] * x_ext(j - (k - h))."""
+    """Fold rows [..., NT] with the integer-shift kernel w[..., K]
+    (K = 2*h+1; w's leading axes broadcast against vals'), edge-extended
+    like strip_fold + trace_multiply_add: out[j] = sum_k w[k] * x_ext(j - (k - h))."""
     k = w.shape[-1]
     h = (k - 1) // 2
     nt = vals.shape[-1]
@@ -281,7 +285,7 @@ def apply_fold(vals, w):
     idx = torch.arange(nt, device=dev)[None, :] - (torch.arange(k, device=dev)[:, None] - h)
     gathered = vals[..., idx.clamp(0, nt - 1)]  # [..., K, NT]
     gathered = torch.where(idx < 0, 0.0, gathered)
-    return (w[:, None] * gathered).sum(dim=-2)
+    return (w[..., :, None] * gathered).sum(dim=-2)
 
 
 def ref_norm_spans(ctx, shift=0):
@@ -456,7 +460,16 @@ def evaluate_misfits_floating_fused(
         # f32 rounding can leave out - tail a hair negative when the span
         # contributes ~nothing; clamp before the L2 sqrt
         sums = torch.clamp(out.transpose(0, 1) - tail, min=0.0)
+    return _floating_select(ctx, rctx, sums, st, nrec, rids)
 
+
+def _floating_select(ctx, rctx, sums, st: ProbeStatic, nrec, rids=None):
+    """Scan sums f32[S, RC, B] -> (m [B, RC], norm [B, RC], floating_shift
+    [B, R]): the l1/l2 misfit per trial shift, the per-receiver shift with
+    the least summed misfit (first minimum on ties, as jnp.argmin), and the
+    amplitude normalization undone."""
+    l2 = rctx["base"] == L2NORM
+    RC, B = sums.shape[1], sums.shape[2]
     dtc = np.float32(st.dt)
     ms = gsqrt(dtc * sums) if l2 else dtc * sums  # [S, RC, B]
     ms = torch.where(ctx["enabled"][None, :, None], ms, 0.0)
@@ -488,6 +501,120 @@ def evaluate_misfits_floating_fused(
     n = rctx["norm"][None, :].expand(B, RC)
     s0 = ctx["amp_scale"]
     return m * s0, n * s0, shift_sel
+
+
+# ---------------------------------------------------------------------------
+# floating-norm evaluation of precomputed synthetics (finite sources)
+# ---------------------------------------------------------------------------
+
+
+def _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st, moments,
+                   risetimes, fold_nshift_max):
+    """Per-model STF fold, probe placement and moment: syn [B, RC, PL] and
+    the batch's [B, RC] data spans (kiwi_tpu.misfit's batched prologue)."""
+    B, RC, _nt = syn_traces_b.shape
+    syn_lo_b = torch.broadcast_to(syn_lo_b, (B, RC))
+    syn_hi_b = torch.broadcast_to(syn_hi_b, (B, RC))
+    if risetimes is not None and fold_nshift_max > 0:
+        wf = fold_stf_weights(risetimes, st.dt, fold_nshift_max)  # [B, K]
+        syn_traces_b = apply_fold(syn_traces_b, wf[:, None, :])
+        syn_lo_b = syn_lo_b - fold_nshift_max
+        syn_hi_b = syn_hi_b + fold_nshift_max
+    syn = place_on_probe(syn_traces_b, syn_it0, st) * moments.to(F32)[:, None, None]
+    return syn, syn_lo_b, syn_hi_b
+
+
+def evaluate_misfits_floating_batch(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b,
+                                    st: ProbeStatic, nrec, moments, risetimes, rctx,
+                                    fold_nshift_max=0, eval_win=None, rids=None):
+    """Batched floating-norm evaluation of precomputed synthetics through the
+    scan kernel (ops/float_scan.scan_sums), for plans WITHOUT filters
+    (kiwi_tpu.misfit.evaluate_misfits_floating_batch): tapered rows are zero
+    outside the taper span, and untapered rows repeat their edge values
+    right of their data spans, so the unmasked window sum minus a closed-form
+    tail is the span integral.
+
+    syn_traces_b: f32[B, RC, NT] raw synthetics starting at absolute syn_it0;
+    syn_lo_b/syn_hi_b: int[B, RC] or [RC] data spans; moments f32[B];
+    risetimes f32[B] or None (per-model STF fold).  The window slice is
+    eval_window_slice's (its length rounded up to 8 samples, where the JAX
+    package rounds to 128 lanes): the tail correction makes the sums
+    independent of that length in exact arithmetic.
+    Returns (m [B, RC], norm [B, RC], floating_shift [B, R]).
+    """
+    l2 = rctx["base"] == L2NORM
+    syn, _lo, syn_hi_b = _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b,
+                                        st, moments, risetimes, fold_nshift_max)
+    syn_s = _taper_arrays(ctx, syn) * ctx["syn_factor"][None, :, None]
+
+    i0, wk = eval_window_slice(eval_win, st)
+    ref_sl = rctx["ref_proc"][..., i0:i0 + wk]  # [S, RC, W]
+    syn_sl = syn_s[..., i0:i0 + wk]  # [B, RC, W]
+    S, RC = ref_sl.shape[:2]
+    out = scan_sums(ref_sl.reshape(S * RC, wk), syn_sl.transpose(0, 1), l2=l2)  # [S, B, RC]
+
+    # exact tail correction: right of hi = max(ref span, syn span) both
+    # arrays repeat their edge values (zero for tapered rows)
+    basei = st.ps0 + i0
+    hi = torch.maximum(rctx["ref_hi_s"][:, None, :], syn_hi_b[None])  # [S, B, RC]
+    hi_loc = torch.clamp(hi - basei, 0, wk - 1)
+    hi_loc = torch.where(ctx["has_taper"][None, None, :], wk - 1, hi_loc)
+    count = (wk - 1 - hi_loc).to(F32)
+    dlast = ref_sl[..., -1][:, None, :] - syn_sl[..., -1][None]  # [S, B, RC]
+    tail = count * (dlast * dlast if l2 else torch.abs(dlast))
+    # f32 rounding can leave out - tail a hair negative; clamp before the sqrt
+    sums = torch.clamp(out - tail, min=0.0).transpose(1, 2)  # [S, RC, B]
+    return _floating_select(ctx, rctx, sums, st, nrec, rids)
+
+
+def evaluate_misfits(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st: ProbeStatic,
+                     nrec, moments, risetimes, rctx, fold_nshift_max=0, any_filter=True,
+                     eval_win=None, rids=None, chunk_elems=1 << 25):
+    """Per-model floating-norm evaluation with exact span masks: the
+    floating branch of kiwi_tpu.misfit.evaluate_misfits (which the JAX
+    engine vmaps over sources), batched over B.  It runs the probe chain
+    (taper -> rfft -> PLF filter -> irfft) on every synthetic, so it serves
+    the filtered plans the scan kernel cannot take; the JAX package has no
+    kernel for it either.  Chunked over B so that the [S, b, RC, W]
+    difference block stays under `chunk_elems` elements.
+
+    Arguments as evaluate_misfits_floating_batch.  Non-floating norms raise
+    NotImplementedError.  Returns (m [B, RC], norm [B, RC], floating_shift [B, R]).
+    """
+    if rctx is None or rctx["method"] not in FLOATING:
+        raise NotImplementedError(
+            "non-floating misfit norms are not ported yet (ROADMAP.md queue 1, item 11)")
+    l2 = rctx["base"] == L2NORM
+    syn, syn_lo_b, syn_hi_b = _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b,
+                                             syn_hi_b, st, moments, risetimes,
+                                             fold_nshift_max)
+    tap_s, filt_s = processed_arrays(ctx, syn, st, use_fft=any_filter)
+    syn_proc = torch.where(ctx["has_filter"][:, None], filt_s, tap_s)  # [B, RC, PL]
+
+    if eval_win is not None:
+        i0 = max(int(eval_win[0]) - st.ps0, 0)
+        i1 = min(int(eval_win[1]) - st.ps0 + 1, st.pl)
+    else:
+        i0, i1 = 0, st.pl
+    # misfit spans per shift: the taper span or the union of data spans
+    has_taper = ctx["has_taper"][None, None, :]
+    lo = torch.where(has_taper, ctx["taper_lo"][None, None, :],
+                     torch.minimum(rctx["ref_lo_s"][:, None, :], syn_lo_b[None]))  # [S, B, RC]
+    hi = torch.where(has_taper, ctx["taper_hi"][None, None, :],
+                     torch.maximum(rctx["ref_hi_s"][:, None, :], syn_hi_b[None]))
+    j = st.ps0 + i0 + torch.arange(i1 - i0, device=syn.device)
+    ref_sl = rctx["ref_proc"][:, None, :, i0:i1]  # [S, 1, RC, W]
+    syn_sl = ctx["syn_factor"][:, None] * syn_proc[..., i0:i1]  # [B, RC, W]
+    S, RC, B = ref_sl.shape[0], ref_sl.shape[2], syn.shape[0]
+    sums = torch.empty((S, B, RC), dtype=F32, device=syn.device)
+    step = max(1, chunk_elems // max(S * RC * (i1 - i0), 1))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        mask = ((j >= lo[:, sl, :, None]) & (j <= hi[:, sl, :, None])).to(F32)
+        diff = ref_sl - syn_sl[None, sl]  # [S, b, RC, W]
+        u = diff * diff if l2 else torch.abs(diff)
+        sums[:, sl] = torch.sum(u * mask, dim=-1)
+    return _floating_select(ctx, rctx, sums.transpose(1, 2), st, nrec, rids)
 
 
 def global_misfit(misfits, norms):

@@ -2,7 +2,8 @@
 
 Each `csrc/*.cu` file has a plain C interface and is compiled by nvcc for
 Hopper (sm_90a) into `build/kiwi_tpu_torch/<stem>-<hash>.so` beside the
-package, at first use, then loaded with ctypes.  The hash covers the source
+package, at first use, then loaded with ctypes; `build_all` compiles
+several sources at once, one nvcc process each.  The hash covers the source
 and the flags, so an edited source rebuilds.  The flags keep IEEE float32
 semantics: no fast math, denormals kept (moment-1.0 sessions put misfit
 samples near 1e-19), correctly rounded division and square root.
@@ -41,26 +42,42 @@ def find_nvcc():
                        "the port's CUDA kernels are built at first use")
 
 
+def build_all(*source_names):
+    """Compile each csrc/<source_name> unless a build of the same source
+    and flags exists, one nvcc process per source, all started together;
+    returns the library paths in order.  The compiler's resource report
+    (-Xptxas -v) is kept beside each library as <lib>.log."""
+    libs, jobs = [], []
+    for name in source_names:
+        src = CSRC_DIR / name
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+        libs.append(lib)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, lib, tmp, cmd, proc))
+    failed = []
+    for src, lib, tmp, cmd, proc in jobs:
+        report, _ = proc.communicate()  # waits for every job, failed or not
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n"
+                          f"{' '.join(cmd)}\n{report}")
+            continue
+        lib.with_suffix(".log").write_text(report)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(source_name):
-    """Compile csrc/<source_name> unless a build of the same source and
-    flags exists; returns the library path.  The compiler's resource report
-    (-Xptxas -v) is kept beside it as <lib>.log."""
-    src = CSRC_DIR / source_name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """build_all for one source; returns its library path."""
+    return build_all(source_name)[0]
 
 
 def load(source_name):

@@ -1,5 +1,6 @@
-"""Fused synthesis + floating-shift scan sums: the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""Floating-shift scan sums: the CUDA kernels' wrappers and their plain
+PyTorch versions.  `fused_scan_sums` fuses the shared-kinematics synthesis
+into the scan; `scan_sums` (end of the file) scans precomputed synthetics.
 
 For shared-kinematics plans the synthetic of model b on receiver-channel
 row rc is a weight contraction against batch-invariant values rows,
@@ -33,8 +34,8 @@ from . import build
 
 # kernel launches per kernel since the last reset (plain-version calls are
 # not counted): "fused_scan" replaces _fused_kernel, "fused_scan_masked"
-# _fused_kernel_masked
-launches = {"fused_scan": 0, "fused_scan_masked": 0}
+# _fused_kernel_masked, "scan_sums" _scan_kernel and _scan_kernel_blocked
+launches = {"fused_scan": 0, "fused_scan_masked": 0, "scan_sums": 0}
 
 MAX_T = 64  # the kernel's register bucket bound on the contraction depth
 
@@ -134,4 +135,78 @@ def fused_scan_sums_reference(ref, v, wgt, lo=None, hi=None, basei=0, k_share=1,
         if mask is not None:
             u = u * mask[..., None]
         out[:, :, b0:b0 + step] = u.sum(dim=2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scan over precomputed synthetics (finite-source and unfused shared plans)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_library():
+    lib = build.load("scan_sums.cu")
+    fn = lib.kiwi_scan_sums
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def scan_sums(ref, syn, l2=False):
+    """Full-window floating-shift scan sums.
+
+    ref: f32[S*RC, W] processed + shifted references (row s*RC + rc).
+    syn: f32[RC, B, W] processed synthetics (syn_factor and moment folded in).
+    Returns f32[S, B, RC]: out[s, b, rc] = sum_w u(ref[s*RC + rc, w] -
+    syn[rc, b, w]), u = |d| or d^2 (l2).  B may be any size: there is no
+    padding to a block.  The caller applies the tail correction, dt and the
+    shift selection.
+
+    Replaces the TPU kernels kiwi_tpu/ops/float_scan.py:_scan_kernel and
+    _scan_kernel_blocked (csrc/scan_sums.cu: one CUDA kernel, window staged
+    in chunks whatever W is).  FP32 ALU issue bounds it on an H100; its
+    design stages each block's synthetic tile once in shared memory for all
+    S shifts.  See the source's header.
+    """
+    for name, x in (("ref", ref), ("syn", syn)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if ref.dim() != 2 or syn.dim() != 3 or ref.shape[1] != syn.shape[2] \
+            or ref.shape[0] % max(syn.shape[0], 1):
+        raise ValueError(f"shape mismatch: ref {tuple(ref.shape)} (want [S*RC, W]), "
+                         f"syn {tuple(syn.shape)} (want [RC, B, W])")
+    if ref.device != syn.device:
+        raise ValueError("ref and syn must be on one device")
+    RC, B, W = syn.shape
+    S = ref.shape[0] // RC
+    dev = ref.device
+    if dev.type == "cpu":
+        return scan_sums_reference(ref, syn, l2)
+    if dev.type != "cuda":
+        raise ValueError(f"scan_sums runs on cpu or cuda tensors, not {dev}")
+    ref, syn = ref.contiguous(), syn.contiguous()
+    out = torch.empty((S, B, RC), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _scan_library().kiwi_scan_sums(
+            ref.data_ptr(), syn.data_ptr(), out.data_ptr(), S, RC, B, W, int(bool(l2)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"kiwi_scan_sums launch failed: CUDA error {err}")
+    launches["scan_sums"] += 1
+    return out
+
+
+def scan_sums_reference(ref, syn, l2=False, chunk_elems=1 << 24):
+    """The same function in plain torch, chunked over B so that the
+    [S, RC, b, W] difference block stays under `chunk_elems` elements."""
+    RC, B, W = syn.shape
+    S = ref.shape[0] // RC
+    ref4 = ref.reshape(S, RC, 1, W)
+    out = torch.empty((S, B, RC), dtype=torch.float32, device=ref.device)
+    step = max(1, chunk_elems // max(S * RC * W, 1))
+    for b0 in range(0, B, step):
+        d = ref4 - syn[None, :, b0:b0 + step]  # [S, RC, b, W]
+        u = d * d if l2 else torch.abs(d)
+        out[:, b0:b0 + step] = u.sum(dim=-1).transpose(1, 2)
     return out

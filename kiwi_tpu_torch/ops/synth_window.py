@@ -1,0 +1,205 @@
+"""Finite-source window synthesis: the CUDA kernel's wrapper, its plain
+PyTorch version, and the packing of batched kinematics into its operands
+(port of kiwi_tpu/ops/synth_window.py).
+
+For every (source, receiver) and every group of G centroids that share one
+GF node (finite-source discretizers emit runs of G = nt consecutive
+centroids at one position), the synthesis blends the group's 4 bilinear
+neighbour GF rows, contracts them with each centroid's moment weights,
+rotates them into away/right/down, applies the 2-tap fractional time shift
+and accumulates at the centroid's integer shift kk: ard f32[B, R, 3, nt_out].
+
+The kernel (csrc/synth_window.cu) replaces the TPU kernels
+kiwi_tpu/ops/synth_window.py:_kernel, _kernel_dma and _kernel_compact,
+which differ only in TPU memory placement.  Its operands are compact: no
+lane broadcasts, no 8-row group split, no receiver packing, no row pitch.
+What bounds it on an H100 is the blend's reads of the GF window (L2
+resident at the benchmark's 13.5 MB); its design stages each group's
+blended rows once in shared memory for all G centroids and all output
+samples.  See the source's header.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.  There is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+F32 = torch.float32
+I32 = torch.int32
+
+# kernel launches since the last reset (plain-version calls are not counted)
+launches = {"window_synth": 0}
+
+NW = 10  # weight row per centroid: f1..f6, cos_l, sin_l, 1 - frac, frac
+T_MAX = 2048  # longest extended time axis the kernel takes (80 KB of shared memory)
+
+
+def usable(cfg):
+    """Window-kernel applicability: an extended time axis of at most T_MAX
+    samples and a standard GF component count (8 or 10)."""
+    return cfg.nt_out + cfg.s_len <= T_MAX and cfg.ng in (8, 10)
+
+
+def pack_ext(ext, cfg):
+    """materialize_window's ext [nxw, nzw, ng, nt_ext] -> [N, ng, nt_ext],
+    N = nxw * nzw nodes, x-major (node = ix * nzw + iz)."""
+    return ext.reshape(cfg.nxw * cfg.nzw, cfg.ng, ext.shape[-1]).contiguous()
+
+
+def strides(cfg):
+    """Neighbour node strides (s1, s2, s3) = (zu, xu*nzw, xu*nzw + zu) of
+    the +zu, +xu and +xu+zu bilinear neighbours, host ints."""
+    zu = cfg.zunder if cfg.interpolate else 1
+    xu = cfg.xunder if cfg.interpolate else 1
+    return zu, xu * cfg.nzw, xu * cfg.nzw + zu
+
+
+def pack_kinematics(cfg, kin, G):
+    """Batched kinematics (leaves [B, R, C, ...] from
+    synth._centroid_kinematics) -> compact kernel operands
+    (kiwi_tpu.ops.synth_window.pack_kinematics without its TPU layouts):
+
+    node_rows i32[B, R, P]: each group's bilinear-origin node, clamped so
+        that node + s3 stays inside the window (invalid centroids carry zero
+        weights but still read rows);
+    kk i32[B, P, G]: slice starts, clipped to [0, nt_ext - nt_out - 1].  The
+        integer shift derives from the centroid time alone, so receiver 0's
+        stands for all receivers, as in the JAX package;
+    wrows f32[B, R, P, G, NW]: f1..f6 (zero for invalid centroids), cos_l,
+        sin_l, 1 - frac, frac;
+    wsp f32[B, R, P, 4]: bilinear weights in (00, 01, 10, 11) order.
+    """
+    bb, rr, c = kin["ish"].shape
+    P = c // G
+    ixs = kin["ixs"][:, :, ::G]  # [B, R, P, 2]
+    izs = kin["izs"][:, :, ::G]
+    node = ixs[..., 0] * cfg.nzw + izs[..., 0]
+    node_rows = node.clamp(0, cfg.nxw * cfg.nzw - 1 - strides(cfg)[2]).to(I32)
+
+    start_base = cfg.s_base + cfg.s_len - 1  # out_it0 - e0 - 1
+    kk = (start_base - kin["ish"][:, 0].reshape(bb, P, G)).clamp(0, cfg.s_len - 1).to(I32)
+
+    vmask = kin["valid"].reshape(bb, rr, P, G).to(F32)
+    f = kin["f"].reshape(bb, rr, P, G, 6) * vmask[..., None]
+    fr = kin["frac"].reshape(bb, rr, P, G, 1)
+    wrows = torch.cat([
+        f, kin["cos_l"].reshape(bb, rr, P, G, 1), kin["sin_l"].reshape(bb, rr, P, G, 1),
+        1.0 - fr, fr], dim=-1).to(F32).contiguous()
+    wsp = kin["wsp"][:, :, ::G].to(F32).contiguous()
+    return node_rows.contiguous(), kk.contiguous(), wrows, wsp
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = build.load("synth_window.cu")
+    fn = lib.kiwi_window_synth
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(ext, node_rows, s3, kk, wrows, wsp, nt_out):
+    if ext.dtype != F32 or ext.dim() != 3:
+        raise ValueError(f"ext must be f32[N, ng, nt_ext], got {ext.dtype} {tuple(ext.shape)}")
+    N, ng, nt_ext = ext.shape
+    if node_rows.dtype != I32 or kk.dtype != I32:
+        raise ValueError("node_rows and kk must be int32")
+    if node_rows.dim() != 3 or kk.dim() != 3:
+        raise ValueError(f"node_rows [B, R, P] and kk [B, P, G] expected, got "
+                         f"{tuple(node_rows.shape)}, {tuple(kk.shape)}")
+    B, R, P = node_rows.shape
+    G = kk.shape[2]
+    if (tuple(kk.shape) != (B, P, G) or tuple(wrows.shape) != (B, R, P, G, NW)
+            or tuple(wsp.shape) != (B, R, P, 4)):
+        raise ValueError(
+            f"shape mismatch: node_rows {tuple(node_rows.shape)}, kk {tuple(kk.shape)}, "
+            f"wrows {tuple(wrows.shape)}, wsp {tuple(wsp.shape)}")
+    if wrows.dtype != F32 or wsp.dtype != F32:
+        raise ValueError("wrows and wsp must be float32")
+    if ng not in (8, 10) or not 0 < nt_out < nt_ext or nt_ext > T_MAX:
+        raise ValueError(f"window_forward takes ng in (8, 10) and nt_out < nt_ext <= {T_MAX}, "
+                         f"got ng={ng}, nt_out={nt_out}, nt_ext={nt_ext}")
+    if N - 1 - s3 < 0:
+        raise ValueError(f"window of {N} nodes is smaller than the bilinear stencil ({s3})")
+    if len({x.device for x in (ext, node_rows, kk, wrows, wsp)}) != 1:
+        raise ValueError("all operands must be on one device")
+    return N, ng, nt_ext, B, R, P, G
+
+
+def window_forward(ext, node_rows, strides3, kk, wrows, wsp, nt_out):
+    """ard f32[B, R, 3, nt_out] from the packed window and operands
+    (pack_ext, strides, pack_kinematics)."""
+    s1, s2, s3 = (int(s) for s in strides3)
+    N, ng, nt_ext, B, R, P, G = _check(ext, node_rows, s3, kk, wrows, wsp, nt_out)
+    dev = ext.device
+    if dev.type == "cpu":
+        return window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out)
+    if dev.type != "cuda":
+        raise ValueError(f"window_forward runs on cpu or cuda tensors, not {dev}")
+    ext, node_rows, kk = ext.contiguous(), node_rows.contiguous(), kk.contiguous()
+    wrows, wsp = wrows.contiguous(), wsp.contiguous()
+    out = torch.empty((B, R, 3, nt_out), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().kiwi_window_synth(
+            ext.data_ptr(), node_rows.data_ptr(), kk.data_ptr(), wrows.data_ptr(),
+            wsp.data_ptr(), out.data_ptr(), N, ng, nt_ext, nt_out, B, R, P, G,
+            s1, s2, s3, stream)
+    if err != 0:
+        raise RuntimeError(f"kiwi_window_synth launch failed: CUDA error {err}")
+    launches["window_synth"] += 1
+    return out
+
+
+def window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out,
+                             chunk_elems=1 << 24):
+    """The same function in plain torch, chunked over B so that the
+    [b, R, P, G, 3, nt_ext] channel block stays near `chunk_elems` elements
+    (the unchunked block at B = 256 of the finite benchmark is ~0.6 GB).
+    The 2-tap shift applies after the contraction, as in the TPU kernel."""
+    _N, ng, nt_ext = ext.shape
+    B, R, P = node_rows.shape
+    G = kk.shape[2]
+    offs = (0,) + tuple(int(s) for s in strides3)
+    t = torch.arange(nt_out, device=ext.device)
+    out = torch.empty((B, R, 3, nt_out), dtype=F32, device=ext.device)
+    step = max(1, chunk_elems // max(R * P * (G * 3 + ng) * nt_ext, 1))
+    for b0 in range(0, B, step):
+        nd = node_rows[b0:b0 + step].long()  # [b, R, P]
+        ws = wsp[b0:b0 + step]
+        blend = ws[..., 0, None, None] * ext[nd + offs[0]]
+        for k in range(1, 4):
+            blend = blend + ws[..., k, None, None] * ext[nd + offs[k]]  # [b, R, P, ng, T]
+        row = blend[:, :, :, None]  # [b, R, P, 1, ng, T]
+        w = wrows[b0:b0 + step][..., None]  # [b, R, P, G, NW, 1]
+        p1 = w[..., 0, :] * row[..., 0, :] + w[..., 1, :] * row[..., 1, :] \
+            + w[..., 2, :] * row[..., 2, :]
+        p2 = w[..., 3, :] * row[..., 3, :] + w[..., 4, :] * row[..., 4, :]
+        dd = w[..., 0, :] * row[..., 5, :] + w[..., 1, :] * row[..., 6, :] \
+            + w[..., 2, :] * row[..., 7, :]
+        if ng == 10:
+            p1 = p1 + w[..., 5, :] * row[..., 8, :]
+            dd = dd + w[..., 5, :] * row[..., 9, :]
+        x = torch.stack([w[..., 6, :] * p1 - w[..., 7, :] * p2,
+                         w[..., 7, :] * p1 + w[..., 6, :] * p2, dd], dim=-2)  # [b, R, P, G, 3, T]
+        idx = kk[b0:b0 + step].long()[:, None, :, :, None, None] + t  # [b, 1, P, G, 1, nt]
+        idx = idx.expand(x.shape[:-1] + (nt_out,))
+        fr0 = w[..., 8, :, None]  # [b, R, P, G, 1, 1]
+        fr1 = w[..., 9, :, None]
+        y = fr0 * torch.gather(x, -1, idx + 1) + fr1 * torch.gather(x, -1, idx)
+        out[b0:b0 + step] = y.sum(dim=(2, 3))
+    return out
+
+
+def synthesize_ard_batch(ext_flat, cfg, kin, G):
+    """ard f32[B, R, 3, nt_out] for a (source, receiver) batch: kin leaves
+    [B, R, C, ...] with C a multiple of the group size G."""
+    node_rows, kk, wrows, wsp = pack_kinematics(cfg, kin, G)
+    return window_forward(ext_flat, node_rows, strides(cfg), kk, wrows, wsp, cfg.nt_out)

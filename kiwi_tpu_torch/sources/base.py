@@ -79,8 +79,8 @@ def get_source_model(name) -> SourceModel:
     except KeyError:
         raise NotImplementedError(
             f"source type {name!r} is not ported yet (the port has "
-            f"{sorted(SOURCE_REGISTRY)}; ROADMAP.md queue 1, item 9 brings "
-            "the other device-discretized sources, item 13 eikonal)"
+            f"{sorted(SOURCE_REGISTRY)}; ROADMAP.md queue 1, item 13 brings "
+            "the eikonal sources)"
         ) from None
 
 

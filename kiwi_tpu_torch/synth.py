@@ -1,12 +1,15 @@
-"""Seismogram synthesis by GF superposition: the shared-kinematics subset
-(port of the parts of kiwi_tpu/synth.py that the point sweep reaches).
+"""Seismogram synthesis by GF superposition (port of the parts of
+kiwi_tpu/synth.py that the point sweep and the finite-source batches reach).
 
 For every source centroid: differential geodesy to each receiver, the
 azimuth-dependent moment-tensor weights, bilinear GF node indices and the
-fractional time shift (`_centroid_kinematics`); the GF rows blended and
-shifted once per receiver (`values_matrix`); and each source a weight
-contraction against those rows (`weights_from_angles`).  Receivers are a
-leading batch dimension written out where the JAX package vmaps.
+fractional time shift (`_centroid_kinematics`, for one source or a batch).
+Shared-kinematics plans blend and shift the GF rows once per receiver
+(`values_matrix`) and contract each source's weights against them
+(`weights_from_angles`); finite-source batches go through the window
+kernel (ops/synth_window.py) with spans from per-node tables
+(`span_tables`, `physical_spans_from_tables`).  Sources and receivers are
+leading batch dimensions written out where the JAX package vmaps.
 
 Per-receiver geodesy is host float64 numpy; the per-centroid differential
 geodesy is float32 on the device, as in the reference (centroid_geodesy_fast).
@@ -303,19 +306,23 @@ def _centroid_kinematics(cfg: SynthConfig, rec, centroids):
     """Per-(receiver, centroid) geodesy, weights, indices and taps.
 
     rec: ReceiverGeometry.to(device) (leaves [R]); centroids: dict with
-    north, east, depth, time f32[C], m f32[C, 6] (and optionally active).
-    Returns a dict of [R, C, ...] tensors.
+    north, east, depth, time f32[..., C], m f32[..., C, 6] (and optionally
+    active), with an optional leading batch axis.  Returns a dict of
+    [..., R, C, ...] tensors: [R, C] for one source, [B, R, C] for a batch
+    (the JAX package's vmap over sources and receivers written out).
     """
-    r1 = {k: v[:, None] for k, v in rec.items()}  # [R, 1]
+    lead = centroids["north"].dim() - 1  # 0 (one source) or 1 (a batch)
+    r1 = {k: v.reshape((1,) * lead + (-1, 1)) for k, v in rec.items()}  # [.., R, 1]
+    cent = {k: v.unsqueeze(lead) for k, v in centroids.items()}  # [.., 1, C, ...]
     sin_az, cos_az, sin_l, cos_l, dist = centroid_geodesy_fast(
-        centroids["north"], centroids["east"], r1)  # [R, C]
+        cent["north"], cent["east"], r1)  # [.., R, C]
 
-    f = make_weights_sc(sin_az, cos_az, centroids["m"][None])  # [R, C, 6]
+    f = make_weights_sc(sin_az, cos_az, cent["m"])  # [.., R, C, 6]
 
-    z = centroids["depth"][None, :] - r1["depth"].to(F32)
+    z = cent["depth"] - r1["depth"].to(F32)
     ixs, izs, dix, diz, valid = gf_indices(cfg, dist, z)
 
-    rshift = centroids["time"].to(F32) / np.float32(cfg.dt)
+    rshift = cent["time"].to(F32) / np.float32(cfg.dt)
     ish = torch.floor(rshift).to(I32)
     frac = rshift - ish.to(F32)
 
@@ -324,21 +331,21 @@ def _centroid_kinematics(cfg: SynthConfig, rec, centroids):
     w01 = (1.0 - dix) * diz
     w10 = dix * (1.0 - diz)
     w11 = dix * diz
-    wsp = torch.stack([w00, w01, w10, w11], dim=-1)  # [R, C, 4]
+    wsp = torch.stack([w00, w01, w10, w11], dim=-1)  # [.., R, C, 4]
 
-    wg = _group_weights(f, cos_l, sin_l, cfg.ng)  # [R, C, 3, ng]
+    wg = _group_weights(f, cos_l, sin_l, cfg.ng)  # [.., R, C, 3, ng]
 
-    if "active" in centroids:
-        valid = valid & centroids["active"][None, :]
+    if "active" in cent:
+        valid = valid & cent["active"]
 
-    nrec = sin_az.shape[0]
+    rc_shape = sin_az.shape
     return {
-        "ixs": ixs,  # [R, C, 2] window-relative
+        "ixs": ixs,  # [.., R, C, 2] window-relative
         "izs": izs,
-        "wsp": wsp,  # [R, C, 4] order (00, 01, 10, 11)
-        "wg": wg,  # [R, C, 3, ng]
-        "ish": ish.expand(nrec, -1),  # [R, C]
-        "frac": frac.expand(nrec, -1),
+        "wsp": wsp,  # [.., R, C, 4] order (00, 01, 10, 11)
+        "wg": wg,  # [.., R, C, 3, ng]
+        "ish": ish.expand(rc_shape),  # [.., R, C]
+        "frac": frac.expand(rc_shape),
         "valid": valid,
         # angle factors kept so moment-only batches rebuild wg for new m6
         # without redoing the geodesy (weights_from_angles)
@@ -346,6 +353,7 @@ def _centroid_kinematics(cfg: SynthConfig, rec, centroids):
         "cos_az": cos_az,
         "sin_l": sin_l,
         "cos_l": cos_l,
+        "f": f,  # [.., R, C, 6] MT radiation weights (ops/synth_window packs them)
     }
 
 
@@ -436,6 +444,64 @@ def physical_spans(gf_itmin, gf_nsamples, cfg: SynthConfig, kin):
     lo = torch.stack(lo_out, dim=-1).clamp(cfg.out_it0, top).to(I32)
     hi = torch.stack(hi_out, dim=-1).clamp(cfg.out_it0, top).to(I32)
     return lo, hi
+
+
+_BIG = 1 << 30  # the span sentinel, int32 as in the JAX package
+
+
+def span_tables(gf_itmin, gf_nsamples, cfg: SynthConfig):
+    """Per-node span-union tables i32[nxw*nzw, 4] for
+    physical_spans_from_tables (kiwi_tpu.synth.span_tables): (lo, hi) of
+    the away/right component group and (lo, hi) of the down group, unioned
+    over each node's 4 bilinear neighbours (+xu, +zu stencil) and the
+    group's GF components; empty traces are excluded through +-big
+    sentinels.  Neighbours past the window's far edges clamp to the edge
+    node, as the JAX package's edge padding does (built by clamped
+    indexing: torch's replicate padding takes no integer tensors)."""
+    lo_n = torch.where(gf_nsamples == 0, _BIG, gf_itmin).to(I32)  # [nxw, nzw, ng]
+    hi_n = torch.where(gf_nsamples == 0, -_BIG,
+                       gf_itmin + torch.clamp(gf_nsamples - 1, min=0)).to(I32)
+    xu = cfg.xunder if cfg.interpolate else 1
+    zu = cfg.zunder if cfg.interpolate else 1
+    n1, n2 = gf_itmin.shape[:2]
+    dev = gf_itmin.device
+    ix2 = torch.clamp(torch.arange(n1, device=dev) + xu, max=n1 - 1)
+    iz2 = torch.clamp(torch.arange(n2, device=dev) + zu, max=n2 - 1)
+
+    def union4(a, reduce_min):
+        op = torch.minimum if reduce_min else torch.maximum
+        out = a
+        for part in (a[:, iz2], a[ix2], a[ix2][:, iz2]):
+            out = op(out, part)
+        return out.reshape(-1)
+
+    g0 = slice(0, 5)  # away+right share components 0-4 (+8 when ng == 10)
+    g2 = slice(5, 8)  # down: 5-7 (+9)
+    lo0, hi0 = lo_n[..., g0].amin(-1), hi_n[..., g0].amax(-1)
+    lo2, hi2 = lo_n[..., g2].amin(-1), hi_n[..., g2].amax(-1)
+    if cfg.ng == 10:
+        lo0, hi0 = torch.minimum(lo0, lo_n[..., 8]), torch.maximum(hi0, hi_n[..., 8])
+        lo2, hi2 = torch.minimum(lo2, lo_n[..., 9]), torch.maximum(hi2, hi_n[..., 9])
+    return torch.stack([union4(lo0, True), union4(hi0, False),
+                        union4(lo2, True), union4(hi2, False)], dim=-1)
+
+
+def physical_spans_from_tables(tables, cfg: SynthConfig, kin):
+    """physical_spans through span_tables: one [4] row gathered per
+    centroid (kiwi_tpu.synth.physical_spans_from_tables), for kin leaves
+    [..., C] with any leading axes ([B, R, C] from a batch).  Returns
+    (lo, hi) int32[..., 3], clipped to the output window."""
+    node = kin["ixs"][..., 0] * cfg.nzw + kin["izs"][..., 0]  # [.., C]
+    t = tables[node]  # [.., C, 4]
+    active = kin["valid"]
+    ish = kin["ish"]
+    lo_g = [torch.where(active, t[..., col] + ish, _BIG).amin(dim=-1) for col in (0, 2)]
+    hi_g = [torch.where(active, t[..., col + 1] + ish + 1, -_BIG).amax(dim=-1)
+            for col in (0, 2)]
+    top = cfg.out_it0 + cfg.nt_out - 1
+    lo = torch.stack([lo_g[0], lo_g[0], lo_g[1]], dim=-1).clamp(cfg.out_it0, top)
+    hi = torch.stack([hi_g[0], hi_g[0], hi_g[1]], dim=-1).clamp(cfg.out_it0, top)
+    return lo.to(I32), hi.to(I32)
 
 
 # ---------------------------------------------------------------------------

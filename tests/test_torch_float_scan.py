@@ -86,3 +86,31 @@ def test_wrapper_rejects_bad_operands():
         tfs.fused_scan_sums(r, vv, w, lo=torch.as_tensor(lo).long(), hi=torch.as_tensor(hi))
     with pytest.raises(ValueError, match="cpu or cuda"):
         tfs.fused_scan_sums(r.to("meta"), vv.to("meta"), w.to("meta"))
+
+
+@pytest.mark.parametrize("l2", [False, True])
+def test_scan_sums_matches_pallas_interpret(l2):
+    """scan_sums over precomputed synthetics against the JAX package's
+    scan_sums (resident variant, interpret mode).  The JAX kernel takes B in
+    whole 32-model blocks, so it runs the padded batch; the port takes the
+    ragged B = 50 directly."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(20 + l2)
+    S, RC, W, B = 5, 6, 128, 50
+    ref = rng.standard_normal((S * RC, W)).astype(np.float32)
+    syn = rng.standard_normal((RC, B, W)).astype(np.float32)
+    syn_pad = np.concatenate([syn, np.repeat(syn[:, -1:], 64 - B, axis=1)], axis=1)
+    want = np.asarray(jfs.scan_sums(jnp.asarray(ref), jnp.asarray(syn_pad), l2=l2,
+                                    interpret=True))[:, :B]
+    before = dict(tfs.launches)
+    got = tfs.scan_sums(torch.as_tensor(ref), torch.as_tensor(syn), l2=l2)
+    assert tfs.launches == before, "a CPU call must not count as a kernel launch"
+    assert got.dtype == torch.float32 and got.shape == (S, B, RC)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max())
+    # chunking over B (bounded CPU memory) leaves every sum as it was
+    chunked = tfs.scan_sums_reference(torch.as_tensor(ref), torch.as_tensor(syn), l2=l2,
+                                      chunk_elems=S * RC * W * 7)
+    torch.testing.assert_close(chunked, got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tfs.scan_sums(torch.as_tensor(ref[:-1]), torch.as_tensor(syn))

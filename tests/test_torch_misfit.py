@@ -133,3 +133,72 @@ def test_fold_matches():
         _close(wt, wj, 1e-6)
         _close(tmf.apply_fold(torch.as_tensor(vals), wt),
                jmf.apply_fold(jnp.asarray(vals), wj), 1e-6)
+
+
+def _batch_inputs(seed, B=16, NT=40):
+    """Per-model synthetics [B, RC, NT] with per-model spans and factors."""
+    rng = np.random.default_rng(seed)
+    syn = rng.standard_normal((B, RC, NT)).astype(np.float32)
+    moments = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    risetimes = rng.uniform(0.05, 0.5, B).astype(np.float32)
+    lo = rng.integers(8, 18, (B, RC)).astype(np.int32)
+    hi = (lo + rng.integers(5, 25, (B, RC))).astype(np.int32)
+    return syn, lo, hi, moments, risetimes
+
+
+@pytest.mark.parametrize("taper,fold", [(False, 0), (True, 0), (False, 2), (True, 2)])
+@pytest.mark.parametrize("method", [jmf.FLOATING_L1NORM, jmf.FLOATING_L2NORM])
+def test_floating_batch_eval_matches(taper, fold, method):
+    """The scan-kernel evaluation of precomputed synthetics (unfiltered
+    plans), with a per-model rise-time fold, against the JAX package's
+    (Pallas scan in interpret mode)."""
+    jst, jctx, tst, tctx = _setups(taper, False, seed=5)
+    syn, lo, hi, moments, risetimes = _batch_inputs(7 + fold)
+    syn_it0, sr = 8, (-3, 3)
+    # the window holds every norm span, the taper's included (the engine's
+    # eval window does by construction): the tail correction needs it
+    eval_win = (ST["ps0"] + 10, ST["ps0"] + 115)
+    jr = jmf.precompute_ref_context(jctx, method, jst, sr, taper, False)
+    want = jmf.evaluate_misfits_floating_batch(
+        jctx, jnp.asarray(syn), syn_it0, jnp.asarray(lo), jnp.asarray(hi), method, jst, NREC,
+        jnp.asarray(moments), jnp.asarray(risetimes), fold_nshift_max=fold, rctx=jr,
+        shiftrange=sr, any_taper=taper, eval_win=eval_win, interpret=True)
+    tr = tmf.precompute_ref_context(tctx, method, tst, sr, taper, False)
+    got = tmf.evaluate_misfits_floating_batch(
+        tctx, torch.as_tensor(syn), syn_it0, torch.as_tensor(lo), torch.as_tensor(hi), tst,
+        NREC, torch.as_tensor(moments), torch.as_tensor(risetimes), tr, fold_nshift_max=fold,
+        eval_win=eval_win)
+    m, n, fs = want
+    _close(got[0], m, 2e-5)
+    _close(got[1], n, 2e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(fs))
+
+
+@pytest.mark.parametrize("taper,filt,fold", [
+    (False, True, 0), (True, True, 2), (True, False, 0), (False, False, 2)])
+@pytest.mark.parametrize("method", [jmf.FLOATING_L1NORM, jmf.FLOATING_L2NORM])
+def test_floating_eval_matches(taper, filt, fold, method):
+    """The per-model evaluation with exact span masks and the FFT filter
+    chain (filtered finite plans) against the JAX package's
+    evaluate_misfits under vmap."""
+    jst, jctx, tst, tctx = _setups(taper, filt, seed=6)
+    syn, lo, hi, moments, risetimes = _batch_inputs(9 + fold, B=6)
+    syn_it0, sr = 8, (-3, 3)
+    eval_win = (ST["ps0"] + 10, ST["ps0"] + 100)
+    jr = jmf.precompute_ref_context(jctx, method, jst, sr, taper, filt)
+
+    def one(s, lo1, hi1, mo, rt):
+        return jmf.evaluate_misfits(jctx, s, syn_it0, lo1, hi1, method, jst, NREC, moment=mo,
+                                    risetime=rt, fold_nshift_max=fold, shiftrange=sr, rctx=jr,
+                                    any_taper=taper, any_filter=filt, eval_win=eval_win)
+
+    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, lo, hi, moments, risetimes)))
+    tr = tmf.precompute_ref_context(tctx, method, tst, sr, taper, filt)
+    got = tmf.evaluate_misfits(
+        tctx, torch.as_tensor(syn), syn_it0, torch.as_tensor(lo), torch.as_tensor(hi), tst,
+        NREC, torch.as_tensor(moments), torch.as_tensor(risetimes), tr, fold_nshift_max=fold,
+        any_filter=filt, eval_win=eval_win, chunk_elems=2 * 7 * RC * 90)  # three chunks
+    m, n, fs = want
+    _close(got[0], m, 2e-5)
+    _close(got[1], n, 2e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(fs))
