@@ -3,8 +3,9 @@
 
 Drives kiwi_tpu_torch's main paths at full size on the card -- the
 kiwibench point sweep (bench.py's bench_point / bench_point_filtered
-configuration) and the finite-source batches (bench.py's bench_finite, and
-the same with a band-pass) -- and fails on the first phase that goes wrong:
+configuration), the finite-source batches (bench.py's bench_finite, and
+the same with a band-pass) and the eikonal-rupture grid search (bench.py's
+bench_eikonal) -- and fails on the first phase that goes wrong:
 
 1. build the CUDA kernels from kiwi_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc process per source, all started together;
@@ -22,21 +23,37 @@ the same with a band-pass) -- and fails on the first phase that goes wrong:
    kernel against its plain version (scan: l1 and l2), timed by CUDA
    events; then the window kernel on seeded long-window operands (ng 8 and
    10, nt_ext ~600, G 1, 3 and 8);
-5. the main paths, each with the launch counters set to 0 just before it
-   and read just after: both point sweeps (8 calls each) and both finite
+5. eikonal: bench_eikonal's session (the same store and receivers, l2norm,
+   no floating shift, constraints z in [50, 700] m, an eikonal rupture of
+   radius 250 m as the synthetic reference through the host FMM path);
+   capture the fast-sweeping kernel's operands from one 384-radius batch
+   (speed [384, 144, 136]) and hold it against its plain version (1e-4
+   relative per reached cell), timed; then time it on seeded 1100 x 300
+   grids (more rows than threads, the time grid in device memory);
+6. the main paths, each with the launch counters set to 0 just before it
+   and read just after: both point sweeps (8 calls each), both finite
    configurations (8 and 4 batches of 256 strikes, linspace(0, 359) plus
-   N(0, 0.01) noise as bench.py draws them); steady-state models/s (host
+   N(0, 0.01) noise as bench.py draws them) and the eikonal search (4
+   batches of 384 radii, linspace(200, 350)); steady-state models/s (host
    clock around work that ends in torch.cuda.synchronize()), the best
-   strike (91 +- 1 for the sweeps, +- 1.5 for the finite batches), and each
-   path's kernels launched;
-6. run the first 16 strikes of each sweep and the first 32 models of each
-   finite configuration on a CPU Engine and require 1e-5 relative agreement
-   with the card (global misfits; for the finite batches also misfits and
-   norms).
+   strike (91 +- 1 for the sweeps, +- 1.5 for the finite batches) or
+   radius (250 +- 10 m), each path's kernels launched, and the eikonal
+   device discretizer still in use (no fallback to the host pipeline);
+7. run the first 16 strikes of each sweep, the first 32 models of each
+   finite configuration and the first 8 radii on a CPU Engine and require
+   1e-5 relative agreement with the card (global misfits; for the finite
+   batches also misfits and norms);
+8. trace 5 eikonal calls with torch.profiler: the device time by kernel,
+   the device's busy time, the host syncs, and the host-side batch
+   preparation alone.
 
-Prints one line per phase, then the card's name and power limit, the
-kernels' JSON line, and last {"ok": true, "device": {...}}.  There is no
-CPU path: without a CUDA device it exits nonzero and prints no result.
+Prints one line per phase, then the
+card's name and power limit, the kernels' JSON line (each kernel's
+launches on the main paths, its error against its plain version, its
+time, the plain version's, one PyTorch call's where one computes the same
+function, and its roofline bound from this run's shapes), and last
+{"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
+device it exits nonzero and prints no result.
 """
 
 import json
@@ -61,13 +78,22 @@ FINITE_BASE = np.array([0, 0, 0, 5000.0, 1e12, 91.0, 87.0, 164.0, 0.0, 900.0, 70
 NSTRIKES = 3610
 PACK = 4  # sweeps per call: 14,440 rows
 FINITE_B = 256  # models per finite batch (bench.py:284)
+# bench.py:456-466: a test-scale eikonal rupture (radius 250 m) under l2norm
+EIK_BASE = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 30.0, 80.0, 164.0, 0.0, 0.0, 250.0, 50.0,
+                     -50.0, 0.9, 0.3], dtype=np.float32)
+EIK_B = 384  # radii per batch (bench.py:476)
 TOL = 1e-5  # the repo's on-card relative bar (bench.py:194)
+EIK_TOL = 1e-4  # kernel vs plain arrival times (tests/test_eikonal.py:208-209)
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 flop/s
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
 BAND = ([0.0, 0.2, 3.0, 4.0], [0.0, 1.0, 1.0, 0.0])
 SOURCES = {
     "fused_scan": "kiwi_tpu_torch/csrc/float_scan.cu",
     "fused_scan_masked": "kiwi_tpu_torch/csrc/float_scan.cu",
     "window_synth": "kiwi_tpu_torch/csrc/synth_window.cu",
     "scan_sums": "kiwi_tpu_torch/csrc/scan_sums.cu",
+    "eik_sweep": "kiwi_tpu_torch/csrc/eik_sweep.cu",
 }
 REPLACES = {
     "fused_scan": "kiwi_tpu/ops/float_scan.py:193",
@@ -76,6 +102,7 @@ REPLACES = {
     "window_synth": "kiwi_tpu/ops/synth_window.py:238",
     # _scan_kernel; also _scan_kernel_blocked (:78)
     "scan_sums": "kiwi_tpu/ops/float_scan.py:61",
+    "eik_sweep": "kiwi_tpu/ops/eik_sweep.py:44",
 }
 
 
@@ -103,7 +130,8 @@ def get_store():
     return store, time.perf_counter() - t0
 
 
-def make_engine(store, device, filtered, base=BASE):
+def make_session(store, device):
+    """bench.py:94-108's session: 10 `ned` receivers at 3-4 km, dt 0.1 s."""
     from kiwi_tpu_torch import geo
     from kiwi_tpu_torch.engine import Engine, Receiver
 
@@ -117,6 +145,11 @@ def make_engine(store, device, filtered, base=BASE):
     eng.set_source_location(olat, olon, 0.0)
     eng.set_effective_dt(0.1)
     eng.set_local_interpolation(True)
+    return eng
+
+
+def make_engine(store, device, filtered, base=BASE):
+    eng = make_session(store, device)
     if filtered:
         eng.set_misfit_filter(None, *BAND)
     eng.set_source_params("bilateral", base)
@@ -124,6 +157,37 @@ def make_engine(store, device, filtered, base=BASE):
     eng.set_floating_shiftrange(-1.0, 1.0)
     eng.set_misfit_method("floating_l1norm")
     return eng
+
+
+def make_eikonal_engine(store, device):
+    """bench.py:461-467: l2norm, no floating shift, the rupture confined to
+    z in [50, 700] m, its own synthetic as the reference (host FMM path)."""
+    eng = make_session(store, device)
+    eng.set_misfit_method("l2norm")
+    eng.set_floating_shiftrange(0.0, 0.0)
+    eng.set_source_constraints([[0, 0, 50.0], [0, 0, 700.0]], [[0, 0, -1.0], [0, 0, 1.0]])
+    eng.set_source_params("eikonal", EIK_BASE)
+    eng.set_synthetic_reference()
+    return eng
+
+
+def eik_rows(radii):
+    pb = np.tile(EIK_BASE, (radii.size, 1))
+    pb[:, 10] = radii
+    return pb
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_, flops):
+    """Roofline bound of one call: (ms, "bytes" or "operations"), the larger
+    of its bytes (each input read once, each output written once) over the
+    HBM rate and its float32 operations over the FP32 peak."""
+    t_bytes = nbytes_ / HBM_BPS * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps):
@@ -206,12 +270,22 @@ def check_kernel(name, args, kw, results):
     kk = dict(kw, k_share=k)
     rec["ms"] = cuda_ms(lambda: fs.fused_scan_sums(ref, vv, wgt, **kk), 20)
     rec["plain_ms"] = cuda_ms(lambda: fs.fused_scan_sums_reference(ref, vv, wgt, **kk), 3)
-    log(f"  {name}: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms")
+    # synthesis: 2 T flop per (rc, b, w); scan: 3 per (rc, s, b, w)
+    RC, S, W = ref.shape
+    T, B = vv.shape[1], wgt.shape[2]
+    spans = [kw[k] for k in ("lo", "hi") if k in kw]
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(ref, vv, wgt, *spans) + 4 * RC * S * B,
+                                             2 * RC * B * W * T + 3 * RC * S * B * W)
+    rec["library_ms"] = None  # no one PyTorch call synthesizes and scans
+    log(f"  {name}: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def check_finite_kernels(eng, strikes, results):
     """The window and scan kernels against their plain versions on the
     operands of one 256-model finite batch (the engine's own), timed."""
+    import torch
+
     from kiwi_tpu_torch import misfit as mf
     from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
 
@@ -234,7 +308,15 @@ def check_finite_kernels(eng, strikes, results):
     rec = record_err(results, "window_synth", got, want, "finite batch operands")
     rec["ms"] = cuda_ms(lambda: sw.window_forward(*args, **kw), 20)
     rec["plain_ms"] = cuda_ms(lambda: sw.window_forward_reference(*args, **kw), 3)
-    log(f"  window_synth: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms")
+    # per (b, r, group): the 4-node blend, 7 flop per (component, sample);
+    # per centroid and output sample: the moment contraction (2 ng), the
+    # rotation (6), the 2-tap shift of 3 channels (9), the accumulation (3)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(ext, node_rows, kk, wrows, wsp) + 4 * B * R * 3 * nt_out,
+        B * R * P * (7 * ng * nt_ext + G * nt_out * (2 * ng + 18)))
+    rec["library_ms"] = None  # no one PyTorch call does the blend + contraction + shift
+    log(f"  window_synth: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
     (ref, syn), skw = scans[0]
     RC, Bs, W = syn.shape
@@ -246,7 +328,21 @@ def check_finite_kernels(eng, strikes, results):
     l2 = skw.get("l2", False)  # time the main path's own call
     rec["ms"] = cuda_ms(lambda: fs.scan_sums(ref, syn, l2=l2), 20)
     rec["plain_ms"] = cuda_ms(lambda: fs.scan_sums_reference(ref, syn, l2=l2), 3)
-    log(f"  scan_sums: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms")
+    S = ref.shape[0] // RC
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(ref, syn) + 4 * S * Bs * RC,
+                                             3 * S * RC * Bs * W)
+    rec["library_ms"] = None
+    if not l2:  # the l1 sums are one cdist: [RC, S, W] x [RC, B, W] -> [RC, S, B]
+        def library():
+            return torch.cdist(ref.view(S, RC, W).transpose(0, 1), syn, p=1)
+
+        lib_rel = float((library().permute(1, 2, 0) - fs.scan_sums(ref, syn)).abs().max()
+                        / fs.scan_sums(ref, syn).abs().max())
+        rec["library_ms"] = cuda_ms(library, 20)
+        log(f"  scan_sums: torch.cdist(p=1) {rec['library_ms']:.4f} ms "
+            f"(max rel diff to the kernel {lib_rel:.2e})")
+    log(f"  scan_sums: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def check_long_windows(dev, results):
@@ -274,16 +370,90 @@ def check_long_windows(dev, results):
                        f"long window ng={ng} G={G} nt_ext={nt_ext} B={B} R={R} P={P}")
 
 
+def check_eikonal_kernel(eng, radii, results):
+    """The fast-sweeping kernel against its plain version on the operands of
+    one 384-radius batch (the engine's own; also the path's first call:
+    plan, table calibration and the host cross-check), timed."""
+    import torch
+
+    from kiwi_tpu_torch.ops import eik_sweep as es
+
+    seen = capture(es, "sweep_solve_batch",
+                   lambda: eng.global_misfits_for_source_batch(eik_rows(radii)))
+    if len(seen) != 1:
+        fail(f"expected one eikonal solve per batch, saw {len(seen)}")
+    (speed, delta, first, ip), kw = seen[0]
+    n_rounds = kw["n_rounds"]
+    B, nx, ny = speed.shape
+    steps = (nx + ny - 1) * 4 * n_rounds
+    log(f"  eik_sweep shapes: B={B} nx={nx} ny={ny} n_rounds={n_rounds} "
+        f"({steps} dependent diagonal steps per solve)")
+    for key, (ntmax, budget, hard) in eng._eik_calib.items():
+        log(f"  eikonal tables: fine grid {key[1]}, coarse grid {key[2]}, time cells per "
+            f"coarse cell {ntmax} (bound {hard}), cell budget {budget}")
+    got = es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds)
+    want = es.sweep_solve_batch_reference(speed, delta, first, ip, n_rounds=n_rounds)
+    reached = want < 1e29
+    if not torch.equal(got < 1e29, reached):
+        fail("eik_sweep reaches other cells than its plain version")
+    err = (got - want).abs()[reached]
+    rel = float((err / want.abs()[reached].clamp(min=1e-30)).max())
+    log(f"  eik_sweep: {int(reached.sum())} reached cells of {want.numel()}: max abs err "
+        f"{float(err.max()):.3e}, max rel err {rel:.3e}")
+    if not rel <= EIK_TOL:
+        fail(f"eik_sweep disagrees with its plain version: rel err {rel:.3e} > {EIK_TOL}")
+    rec = results["eik_sweep"] = {"max_abs_err": float(err.max()), "max_rel_err": rel}
+    rec["ms"] = cuda_ms(lambda: es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds),
+                        20)
+    rec["plain_ms"] = cuda_ms(
+        lambda: es.sweep_solve_batch_reference(speed, delta, first, ip, n_rounds=n_rounds), 1)
+    # 26 flop per cell update (division and square root counted as one
+    # each), every cell once per directional sweep
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(speed, delta, first, ip) + 4 * B * nx * ny,
+                                             26 * B * nx * ny * 4 * n_rounds)
+    rec["library_ms"] = None  # no PyTorch call solves an eikonal equation
+    # the dependency chain: one block per source, as many resident per SM as
+    # their shared-memory time grids allow (228 KB per SM, 1 KB reserved per
+    # block), so the call runs `waves` chains of `steps` barrier-separated steps
+    shared = nx * (ny + (ny & 1)) * 4
+    per_sm = max(1, min(228 * 1024 // (shared + 1024), 2048 // (-(-nx // 32) * 32)))
+    waves = -(-B // (per_sm * torch.cuda.get_device_properties(speed.device).multi_processor_count))
+    log(f"  eik_sweep: kernel {rec['ms']:.4f} ms = {waves} waves x {steps} steps x "
+        f"{rec['ms'] / (waves * steps) * 1e3:.4f} us per step ({per_sm} blocks per SM), "
+        f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
+    # residency: one wave of one and of `per_sm` blocks per SM (what a
+    # block per SM would cost per step, were both grids staged in shared memory)
+    sms = torch.cuda.get_device_properties(speed.device).multi_processor_count
+    for nb in sorted({min(B, sms), min(B, per_sm * sms)}):
+        ms = cuda_ms(lambda: es.sweep_solve_batch(speed[:nb], delta[:nb], first[:nb], ip[:nb],
+                                                  n_rounds=n_rounds), 20)
+        log(f"  eik_sweep: {nb} sources (one wave, {-(-nb // sms)} per SM): {ms:.4f} ms, "
+            f"{ms / steps * 1e3:.4f} us per step")
+    # a rupture wider than the benchmark's: nx > 1024 rows (a thread takes
+    # two) and a time grid above the shared-memory limit (in device memory)
+    gen = torch.Generator(device=speed.device).manual_seed(7)
+    wb, wnx, wny = 8, 1100, 300
+    wide = (torch.rand((wb, wnx, wny), generator=gen, device=speed.device) * 3000.0 + 1000.0,
+            torch.full((wb, 2), 5.0, device=speed.device),
+            torch.zeros((wb, 2), device=speed.device),
+            torch.full((wb, 2), 700.0, device=speed.device))
+    wsteps = (wnx + wny - 1) * 4 * n_rounds
+    ms = cuda_ms(lambda: es.sweep_solve_batch(*wide, n_rounds=n_rounds), 5)
+    log(f"  eik_sweep: {wb} sources of {wnx} x {wny} (time grid in device memory): {ms:.4f} ms, "
+        f"{ms / wsteps * 1e3:.4f} us per step")
+
+
 def run_main_path(label, launch_names, run):
     """run() with every launch counter set to 0 just before and read just
     after; fails unless each of the path's kernels was launched."""
-    from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.ops import eik_sweep as es, float_scan as fs, synth_window as sw
 
-    for counts in (fs.launches, sw.launches):
+    for counts in (fs.launches, sw.launches, es.launches):
         for k in counts:
             counts[k] = 0
     out = run()
-    counts = {**fs.launches, **sw.launches}
+    counts = {**fs.launches, **sw.launches, **es.launches}
     log(f"phase launches on the main path ({label}): {counts}")
     for name in launch_names:
         if counts[name] <= 0:
@@ -343,6 +513,75 @@ def run_finite(eng, batches, label):
     return mps
 
 
+def run_eikonal(eng, batches):
+    """bench.py:476-490's loop: one warm batch, then every batch of 384
+    radii through global_misfits_for_source_batch, host clock around work
+    that ends in torch.cuda.synchronize()."""
+    import torch
+
+    eng.global_misfits_for_source_batch(eik_rows(batches[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [eng.global_misfits_for_source_batch(eik_rows(r)) for r in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    g = torch.cat(out).cpu().numpy()
+    radii = np.concatenate(batches)
+    if g.shape != radii.shape or not np.isfinite(g).all():
+        fail(f"eikonal: global misfits not finite: shape {g.shape}")
+    best = float(radii[int(np.argmin(g))])
+    mps = radii.size / seconds
+    log(f"phase eikonal: {len(batches)} batches x {batches[0].size} radii in {seconds:.4f} s "
+        f"({seconds / len(batches) * 1e3:.3f} ms per batch): {mps:.0f} models/s; "
+        f"best radius {best:.2f} m (true 250)")
+    if not eng.eikonal_device:
+        fail("eikonal: the device discretizer fell back to the host pipeline")
+    if abs(best - 250.0) > 10.0:
+        fail(f"eikonal: best radius {best} not within 10 m of 250")
+    return mps
+
+
+def profile_eikonal(eng, radii, reps=5):
+    """torch.profiler over `reps` eikonal calls after a warm one: device
+    time per call by kernel, launches, and the union of device intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pb = eik_rows(radii)
+    eng.global_misfits_for_source_batch(pb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng.global_misfits_for_source_batch(pb)
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:  # union of device intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
+    from kiwi_tpu_torch.sources import eikonal as eiksrc
+
+    t0 = time.perf_counter()
+    for _ in range(reps):  # the host-side batch preparation alone
+        eiksrc.prepare_batch(eiksrc.named_params_batch("eikonal", pb), eng.effective_dt,
+                             eng.eikonal_context())
+    log(f"phase profile eikonal: host prepare_batch {(time.perf_counter() - t0) / reps * 1e3:.3f}"
+        f" ms per call")
+    log(f"phase profile eikonal: per call {len(dev) / reps:.1f} device ops, device busy "
+        f"{busy / reps / 1e3:.4f} ms (union of intervals), sum of device time "
+        f"{sum(t for _, t in by_name.values()) / reps / 1e3:.4f} ms, "
+        f"{syncs / reps:.1f} cudaStreamSynchronize")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {t / reps / 1e3:9.4f} ms  {n / reps:6.1f}x  {name[:110]}")
+
+
 def compare_finite(eng, cpu, strikes, label):
     pb = np.tile(FINITE_BASE, (strikes.size, 1))
     pb[:, 5] = strikes
@@ -369,7 +608,7 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(kiwi_tpu_torch.__file__))) != HERE:
         fail(f"kiwi_tpu_torch imported from {kiwi_tpu_torch.__file__}, not this checkout")
-    from kiwi_tpu_torch.ops import build, float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.ops import build, eik_sweep as es, float_scan as fs, synth_window as sw
 
     if any(m == "jax" or m.startswith(("jax.", "kiwi_tpu.")) or m == "kiwi_tpu"
            for m in sys.modules):
@@ -381,6 +620,7 @@ def main():
     fs._library()
     fs._scan_library()
     sw._library()
+    es._library()
     log(f"phase build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
@@ -413,6 +653,11 @@ def main():
     log("phase kernel-vs-plain window_synth (seeded long windows):")
     check_long_windows(dev, results)
 
+    eik = make_eikonal_engine(store, dev)
+    radii = np.linspace(200.0, 350.0, EIK_B).astype(np.float32)  # bench.py:485-487
+    log(f"phase kernel-vs-plain eik_sweep ({EIK_B}-radius batch operands):")
+    check_eikonal_kernel(eik, radii, results)
+
     mps, counts = {}, {}
     paths = (
         ("unfiltered", ("fused_scan",),
@@ -423,6 +668,7 @@ def main():
          lambda: run_finite(finite["finite"], batches, "unfiltered")),
         ("finite_filtered", ("window_synth",),
          lambda: run_finite(finite["finite_filtered"], batches[:4], "filtered")),
+        ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
@@ -439,6 +685,15 @@ def main():
     for label, eng in finite.items():
         cpu = make_engine(store, "cpu", filtered=label == "finite_filtered", base=FINITE_BASE)
         compare_finite(eng, cpu, batches[0][:32], label)
+    cpu = make_eikonal_engine(store, "cpu")
+    pb = eik_rows(radii[:8])
+    g_cpu = cpu.global_misfits_for_source_batch(pb).numpy()
+    g_gpu = eik.global_misfits_for_source_batch(pb).cpu().numpy()
+    rel = float(np.abs(g_gpu - g_cpu).max()) / max(float(np.abs(g_cpu).max()), 1e-30)
+    log(f"phase card-vs-cpu eikonal: 8 radii, max diff {rel:.3e} of the largest |g|")
+    if not (rel <= TOL and cpu.eikonal_device and eik.eikonal_device):
+        fail(f"eikonal: card and CPU port disagree ({rel:.3e} > {TOL}) or fell back to the host")
+    profile_eikonal(eik, radii)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -448,8 +703,8 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-         "plain_ms": results[name]["plain_ms"]}
+         **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
         for name in REPLACES
     ]}))
     print(json.dumps({"ok": True, "device": {

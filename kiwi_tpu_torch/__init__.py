@@ -3,7 +3,8 @@
 A second package beside the JAX reference `kiwi_tpu`; module names mirror
 it so every counterpart is easy to find.  It imports torch and numpy and
 never jax or kiwi_tpu (the host with the GPU has no JAX), so the numpy-only
-modules it needs (plf, euler, gf/elseis) are carried into it.
+modules it needs (plf, euler, gf/elseis, geometry, crust2x2 with its data
+tables) are carried into it.
 
 Dtype policy (the reference's, kiwi_tpu/__init__.py):
 * waveform data and the misfit path are float32;
@@ -15,9 +16,11 @@ Dtype policy (the reference's, kiwi_tpu/__init__.py):
 
 Ported so far: the shared-kinematics point sweep
 (Engine.sweep_global_misfits through the fused synthesis + floating-scan
-kernel, ops/float_scan.py) and the finite-source batches
+kernel, ops/float_scan.py), the finite-source batches
 (Engine.misfits_for_source_batch through the window synthesis kernel,
-ops/synth_window.py, and the scan kernel); see README.md.
+ops/synth_window.py, and the scan kernel) and the eikonal ruptures (their
+device discretizer through the fast-sweeping kernel, ops/eik_sweep.py)
+under the time-domain norms; see README.md.
 """
 
 import torch as _torch

@@ -1,5 +1,5 @@
 """Session engine: source + GF store + receivers -> seismograms -> misfits
-(port of the floating-norm subset of kiwi_tpu/engine.py).
+(port of the batch-evaluation surface of kiwi_tpu/engine.py).
 
 One object holds the configured database, receiver set, source and misfit
 setup.  Configuration changes invalidate a "plan" (static window/probe
@@ -16,24 +16,34 @@ Three forwards, as in the JAX package:
   then the scan;
 * everything else (finite faults whose strike, dip or size vary): the
   window synthesis kernel (ops/synth_window.py), then the scan kernel
-  (ops/float_scan.scan_sums) on unfiltered plans or the masked plain-torch
-  evaluation (misfit.evaluate_misfits) on filtered ones.
+  (ops/float_scan.scan_sums) on unfiltered floating plans or the masked
+  plain-torch evaluation (misfit.evaluate_misfits) on filtered floating
+  plans and under the time-domain norms.
+The eikonal sources discretize a whole batch on the device (prepare_batch
+on the host, then sources/eikonal.discretize_device_batch with the
+fast-sweeping kernel ops/eik_sweep.py), cross-checked once per table shape
+against the host FMM pipeline (a disagreement raises on the card and falls
+back to the host pipeline on the CPU), or on the host (eikonal_device =
+False, and single sources), and then take the window-kernel forward.
 Plans outside them raise NotImplementedError naming the ROADMAP.md item
 that brings them; nothing is computed some other way.
 
 Units: latitudes/longitudes in degrees, distances/depths in meters, times
-in seconds.  Tensors live on `Engine(store, device=...)`'s device.
+in seconds.  Tensors live on `Engine(store, device=...)`'s device, the card
+("cuda") unless the caller names another.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 
 import numpy as np
 import torch
 
 from . import check_tf32_off
+from . import crust2x2
 from . import misfit as mf
 from . import synth
 from .gf.store import GFStore
@@ -41,16 +51,33 @@ from .gf.trace import dataspan, fnint
 from .ops import synth_window
 from .ops.float_scan import MAX_T
 from .plf import PLF
+from .sources import eikonal as eiksrc
 from .sources import get_source_model
 
 F32 = torch.float32
 
 # an unported case names the ROADMAP.md (queue 1) item that brings it
-_TODO_NORMS = "non-floating misfit norms: ROADMAP.md queue 1, item 11"
+_TODO_NORMS = "spectral misfit norms (ampspec_l1norm, ampspec_l2norm): ROADMAP.md queue 1, item 11"
+LOG = logging.getLogger("kiwi_tpu_torch")
 _TODO_WINDOW = ("plans outside the window kernel (extended time axis above "
                 f"{synth_window.T_MAX} samples, or a GF store with other than 8 or 10 "
                 "components) need the XLA formulations (synthesize_with_spans & co): "
                 "ROADMAP.md queue 1, item 8")
+
+
+def _table_stats(tables, member=None):
+    """Moment-weighted centroid statistics of an eikonal table (or of batch
+    member `member` of batched ones): mean north, east, depth and time, and
+    the total moment weight."""
+    north, east, depth, time, m, active = (
+        np.asarray(tables[k] if member is None else tables[k][member], np.float64)
+        for k in ("north", "east", "depth", "time", "m", "active"))
+    w = np.abs(m).sum(axis=-1) * active
+    tot = w.sum()
+    if tot <= 0:
+        return np.zeros(5)
+    return np.array([(w * north).sum() / tot, (w * east).sum() / tot,
+                     (w * depth).sum() / tot, (w * time).sum() / tot, tot])
 
 
 @dataclasses.dataclass
@@ -69,7 +96,7 @@ class Engine:
     # are evaluated in chunks (misfits_for_source_batch)
     memory_budget = 4 << 30
 
-    def __init__(self, store: GFStore | None = None, device="cpu"):
+    def __init__(self, store: GFStore | None = None, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             check_tf32_off()
@@ -88,6 +115,8 @@ class Engine:
         self.synthetics_factor = 1.0
         self.floating_shiftrange_s = (0.0, 0.0)
         self._per_rec_shiftrange = {}
+        self.crustal_thickness_limit = 0.0
+        self._user_constraints = None
         # host-side reference traces / tapers / filters, keyed by rc row
         self._refs: dict = {}  # irc -> (values f32[n], itmin int)
         self._tapers: dict = {}  # irc -> PLF
@@ -95,6 +124,19 @@ class Engine:
         self._plan = None
         self._plan_key = None
         self._sweep_memo = {}
+        # batched eikonal discretization on the device (fast sweeping)
+        # instead of the serial host FMM.  The first batch of each table
+        # shape cross-checks several members against the host pipeline; if
+        # any disagrees, a CPU engine falls back to it with a warning and a
+        # CUDA engine raises
+        self.eikonal_device = True
+        self._eikonal_checked_keys = set()
+        # device-table calibration: (model, NF, NC, dt, ctx) -> (ntmax, ncell
+        # budget, hard ntmax bound), from the host tables of the first
+        # batch's most demanding members; guarded by the discretizer's
+        # overflow counter, read once its copy has landed (no sync)
+        self._eik_calib = {}
+        self._eik_pending = []  # (calibration key, overflow max, event or None)
 
     # -- configuration (each invalidates the plan as needed) -----------------
 
@@ -122,6 +164,45 @@ class Engine:
         self.src_lon_deg = float(lon_deg)
         self.ref_time = float(ref_time)
         self._invalidate()
+
+    def set_source_constraints(self, points, normals):
+        """Explicit rupture constraints (minimizer_engine.f90:469-477);
+        points/normals: [N, 3] arrays in NED meters."""
+        self._user_constraints = [
+            (np.asarray(p, np.float64), np.asarray(n, np.float64))
+            for p, n in zip(points, normals)
+        ]
+
+    def set_source_crustal_thickness_limit(self, limit):
+        self.crustal_thickness_limit = float(limit)
+
+    def get_source_crustal_thickness(self):
+        """The crust2x2 crustal thickness at the source origin, capped by
+        the crustal thickness limit when one is set."""
+        m = crust2x2.default_model()
+        vp, vs, rho, th, _elev = m.profile(self.src_lat_deg, self.src_lon_deg)
+        _vvp, _vvs, _vrho, thickness = m.profile_averages(vp, vs, rho, th)
+        if self.crustal_thickness_limit > 0:
+            thickness = min(self.crustal_thickness_limit, thickness)
+        return thickness
+
+    def source_constraints(self):
+        """Active constraint half-spaces: user-set, or the defaults from
+        crust2x2 (psm_set_default_constraints, parameterized_source.f90:
+        127-145): surface at z >= 1500 m and the crust bottom."""
+        if self._user_constraints is not None:
+            return list(self._user_constraints)
+        return [
+            (np.array([0.0, 0.0, 1500.0]), np.array([0.0, 0.0, -1.0])),
+            (np.array([0.0, 0.0, self.get_source_crustal_thickness()]),
+             np.array([0.0, 0.0, 1.0])),
+        ]
+
+    def eikonal_context(self):
+        depths, _vp, vs, _rho = crust2x2.default_model().layers_at(
+            self.src_lat_deg, self.src_lon_deg)
+        return eiksrc.EikonalContext(
+            constraints=self.source_constraints(), layer_depths=depths, layer_vs=vs)
 
     def set_source_params(self, source_type: str, params):
         model = get_source_model(source_type)
@@ -280,10 +361,11 @@ class Engine:
         method = self.misfit_method
         any_taper = bool(setup.has_taper.any())
         any_filter = bool(setup.has_filter.any())
-        # the reference context exists for the floating norms only; a plan
-        # under another norm still synthesizes (set_synthetic_reference)
+        # the reference context exists for the floating and the time-domain
+        # norms; a plan under a spectral norm still synthesizes
+        # (set_synthetic_reference)
         rctx = None
-        if method in mf.FLOATING:
+        if method in mf.FLOATING or method in mf.TIME_DOMAIN:
             rctx = mf.precompute_ref_context(ctx, method, st, (s1, s2), any_taper, any_filter)
 
         rc_rec_t = torch.as_tensor(rc_rec, device=dev)
@@ -318,7 +400,7 @@ class Engine:
         # weights and the rc rows are a reshape of [R, K]
         rc_k = mf.uniform_rec_major(rc_rec, nrec)
         tprime = ncent * cfg.ng
-        use_fused_scan = rctx is not None and rc_k is not None and tprime <= MAX_T
+        use_fused_scan = method in mf.FLOATING and rc_k is not None and tprime <= MAX_T
 
         rot = None
         if rc_k is not None:
@@ -382,9 +464,13 @@ class Engine:
             return canon[:, rc_rec_t, rc_chan_t] * rc_sign_t[:, None]
 
         def eval_batch(syn_rc, lo_rc, hi_rc, moments, risetimes):
-            """The scan kernel on unfiltered plans, the masked per-model
-            evaluation (FFT filter chain) on filtered ones."""
-            evaluate = mf.evaluate_misfits if any_filter else mf.evaluate_misfits_floating_batch
+            """The scan kernel on unfiltered floating plans, the masked
+            per-model evaluation (FFT filter chain) on filtered floating
+            plans and under the time-domain norms."""
+            if method in mf.FLOATING and not any_filter:
+                evaluate = mf.evaluate_misfits_floating_batch
+            else:
+                evaluate = functools.partial(mf.evaluate_misfits, any_filter=any_filter)
             return evaluate(ctx, syn_rc, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
                             risetimes, rctx, fold_nshift_max=fold_max, eval_win=eval_win,
                             rids=rc_rec)
@@ -453,16 +539,185 @@ class Engine:
 
     def _param_stats(self, model, pb):
         """Host-side conservative centroid bounds from raw params."""
+        if model.param_stats_ctx:
+            return model.param_stats(pb, self.effective_dt, self.eikonal_context())
         return model.param_stats(pb, self.effective_dt)
 
     def _discretize_batch(self, params_batch):
+        """(centroid tables [B, C] on the engine's device, moments [B],
+        risetimes [B], grid shape, group size: runs of that many
+        consecutive centroids share their position)."""
         model = get_source_model(self.source_type)
         pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
+        if model.host_discretize:
+            return self._discretize_batch_host(model, pb)
         shape = self._batch_shape(model, pb)
         cbatch = model.discretize(torch.as_tensor(pb, device=self.device),
                                   self.effective_dt, shape)
         moments, risetimes = self._post_factors(model, pb)
         return cbatch, moments, risetimes, shape, int(shape[-1])
+
+    def _discretize_batch_host(self, model, pb):
+        """Discretization of the host-discretized (eikonal) models.
+
+        With eikonal_device and a real batch (B >= 2), the whole batch is
+        discretized on the device (sources/eikonal.discretize_device_batch:
+        the fast-sweeping kernel, the downsample and the time cells), with
+        table budgets calibrated from the host FMM tables of the batch's
+        most demanding members and a first-use cross-check per table shape:
+        on disagreement a CPU engine falls back to the host pipeline with a
+        warning (the JAX package's semantics) and a CUDA engine raises, so a
+        fault on the card never turns into a slower host search.  Otherwise
+        every source runs the host pipeline and the tables are padded to a
+        multiple of 16 rows with active = False."""
+        ctx = self.eikonal_context()
+        dev = self.device
+        edt = self.effective_dt
+        if self.eikonal_device and len(pb) >= 2 and model.name in eiksrc.NAMED_PARAMS:
+            named = eiksrc.named_params_batch(model.name, pb)
+            static, arrays = eiksrc.prepare_batch(named, edt, ctx)
+            # rigorous host bound on the time cells per coarse cell: a cell's
+            # duration is 4x the mean |t - mean t| over it, at most
+            # 4 * celldiag / minspeed (the solution is 1-Lipschitz in the
+            # d/speed metric; the solver's dead-zone floor is 0.5 * minspeed)
+            diag = np.hypot(arrays["cdelta"][:, 0], arrays["cdelta"][:, 1])
+            ntmax_hard = int(np.floor(4.0 * diag / np.maximum(arrays["minspeed"], 1.0)
+                                      / edt).max()) + 2
+
+            self._check_eik_overflow()
+            ckey = (model.name, static["NF"], static["NC"], float(edt), ctx.content_key())
+            calib = self._eik_calib.get(ckey)
+            hosts = {}
+            if calib is None:
+                # calibrate the table budgets from the host oracle on the
+                # batch's first, last and widest members: the hard bound pads
+                # ~4x in time cells and the bounding box ~1.6x in cells, and
+                # the window kernel pays for every padded row.  ntmax is the
+                # members' measured need with no margin: a later member that
+                # outgrows it is what the overflow counter catches
+                members = {0, len(pb) - 1, int(np.argmax(named[0]["bord_radius"]))}
+                for i in sorted(members):
+                    hosts[i] = model.discretize(pb[i], edt, ctx)
+                ncell = int(static["NC"][0]) * int(static["NC"][1])
+                st = [h["stats"] for h in hosts.values()]
+                ntmax = min(max(s["max_nt"] for s in st), ntmax_hard)
+                budget = -(-int(np.ceil(max(s["n_cells"] for s in st) * 1.2)) // 8) * 8
+                calib = (max(ntmax, 1), budget if budget < ncell else None, ntmax_hard)
+                self._eik_calib[ckey] = calib
+            ntmax, budget, _hard = calib
+            cbatch = dict(eiksrc.discretize_device_batch(
+                static, arrays, edt, ctx, ntmax, ncell_budget=budget, device=dev))
+            self._queue_overflow(ckey, cbatch.pop("overflow"))
+            # validate >= 3 members (the calibration members, 0, and random
+            # ones) once per (model, table length, dt): a discretizer fault
+            # that spares member 0 (a batch-indexing bug) must not pass
+            key = (model.name, int(cbatch["north"].shape[1]), float(edt))
+            if key not in self._eikonal_checked_keys:
+                self._eikonal_checked_keys.add(key)
+                rng = np.random.default_rng(len(self._eikonal_checked_keys))
+                idxs = set(hosts) | {0} | {
+                    int(i) for i in rng.choice(len(pb), size=min(3, len(pb)), replace=False)}
+                tables = {k: v.cpu().numpy() for k, v in cbatch.items()}
+                for i in sorted(idxs - set(hosts)):
+                    hosts[i] = model.discretize(pb[i], edt, ctx)
+                bad = [i for i in sorted(idxs)
+                       if not self._eikonal_crosscheck_ok(model, pb[i], tables, ctx, member=i,
+                                                          host=hosts[i])]
+                if bad and dev.type == "cuda":
+                    # on the card a disagreement is a fault of the kernel or
+                    # the discretizer: raise rather than move the search to
+                    # the host pipeline behind a warning
+                    raise RuntimeError(
+                        "device eikonal discretization disagrees with the host FMM oracle "
+                        "(mean north, east, depth, time, total moment weight): " + "; ".join(
+                            f"member {i}: device {_table_stats(tables, i)}, host "
+                            f"{_table_stats(hosts[i])}" for i in bad))
+                if bad:
+                    LOG.warning(
+                        "device eikonal discretization disagrees with the host FMM oracle "
+                        "beyond tolerance for batch member(s) %s; falling back to the host "
+                        "pipeline (engine.eikonal_device = False)", bad)
+                    self.eikonal_device = False
+                    return self._discretize_batch_host(model, pb)
+            moments, risetimes = self._post_factors(model, pb)
+            # device tables are [ncell, ntmax] row-major: groups of ntmax
+            return cbatch, moments, risetimes, (int(cbatch["north"].shape[1]),), int(ntmax)
+
+        tables = [model.discretize(p, edt, ctx) for p in pb]
+        cmax = -(-max(t["north"].shape[0] for t in tables) // 16) * 16
+        out = {}
+        for k in ("north", "east", "depth", "time", "m", "active"):
+            first = tables[0][k]
+            arr = np.zeros((len(tables), cmax) + first.shape[1:], dtype=first.dtype)
+            for i, t in enumerate(tables):
+                arr[i, : t[k].shape[0]] = t[k]
+            out[k] = torch.as_tensor(arr, device=dev)
+        moments, risetimes = self._post_factors(model, pb)
+        # host FMM tables have ragged per-cell time runs: no uniform groups
+        return out, moments, risetimes, (cmax,), 1
+
+    def _queue_overflow(self, ckey, ov):
+        """Queue a device batch's overflow counter i32[B] for
+        _check_eik_overflow without a sync: on the card its max is copied
+        into pinned host memory behind an event; on the CPU it is ready."""
+        ovmax = ov.amax()
+        if ovmax.device.type != "cuda":
+            self._eik_pending.append((ckey, ovmax, None))
+            return
+        host = torch.empty((), dtype=ovmax.dtype, pin_memory=True)
+        host.copy_(ovmax, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._eik_pending.append((ckey, host, event))
+
+    def _check_eik_overflow(self, force=False):
+        """Deferred, sync-free guard on the calibrated device-eikonal table
+        budgets.  On overflow the calibration for that shape widens to the
+        rigorous hard bound; the overflowed batch itself shipped with
+        clipped time cells / dropped cells (a discretization-level
+        approximation on a few cells, warned about here).  A counter is read
+        only once its copy has landed (event.query()); unresolved ones stay
+        queued, the oldest read anyway past 8 pending, all with force."""
+        still = []
+        for i, (ckey, ov, event) in enumerate(self._eik_pending):
+            must = force or len(self._eik_pending) - i > 8
+            if event is not None and not event.query():
+                if not must:
+                    still.append((ckey, ov, event))
+                    continue
+                event.synchronize()
+            self._drain_eik_overflow(ckey, ov)
+        self._eik_pending = still
+
+    def _drain_eik_overflow(self, ckey, ov):
+        ov = int(ov)
+        if ov > 0:
+            calib = self._eik_calib.get(ckey)
+            hard = calib[2] if calib else ov
+            self._eik_calib[ckey] = (hard, None, hard)
+            LOG.warning(
+                "device eikonal table calibration overflowed by %d rows/cells on the "
+                "previous batch (its misfits carry a small extra discretization error); "
+                "widening the table budget to the rigorous bound for %s", ov, ckey)
+
+    def _eikonal_crosscheck_ok(self, model, p0, tables, ctx, rtol=2e-3, member=0, host=None):
+        """First-use validation of the device discretizer against the host
+        FMM pipeline: the moment-weighted centroid statistics (mean north,
+        east, depth, time and the total moment weight) of batch member
+        `member`'s table must agree within rtol of their scales (the tables
+        cannot be compared cell by cell: the pipelines discretize time
+        differently).  tables: the device tables as numpy arrays."""
+
+        if host is None:
+            host = model.discretize(p0, self.effective_dt, ctx)
+        s_host = _table_stats(host)
+        s_dev = _table_stats(tables, member)
+        scale = np.array([
+            max(abs(s_host[0]), 100.0), max(abs(s_host[1]), 100.0),
+            max(abs(s_host[2]), 100.0), max(abs(s_host[3]), self.effective_dt),
+            max(abs(s_host[4]), 1e-30),
+        ])
+        return bool(np.all(np.abs(s_dev - s_host) <= rtol * scale))
 
     def _ensure_plan(self, risetime_max, shape, stats, gsize=1):
         extent, depth_range, time_range = stats
@@ -486,14 +741,16 @@ class Engine:
             self._plan_key = key
         return self._plan
 
-    def _current_plan(self):
+    def _current_tables(self):
+        """The plan of the current source and its centroid tables (one row),
+        discretized first: a host-discretized model's grid shape is its
+        table length."""
         model = get_source_model(self.source_type)
         pb = self.source_params[None, :]
         stats = self._param_stats(model, pb)
-        shape = self._batch_shape(model, pb)
-        _m, risetimes = self._post_factors(model, pb)
-        return self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats,
-                                 gsize=int(shape[-1]))
+        cbatch, moments, risetimes, shape, gsize = self._discretize_batch(pb)
+        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats, gsize=gsize)
+        return plan, cbatch, moments, risetimes
 
     # -- queries --------------------------------------------------------------
 
@@ -505,17 +762,57 @@ class Engine:
         else the matmul forward; all others the window kernel.  Batches
         whose per-source transients exceed `memory_budget` run in balanced
         chunks (the last may be shorter; rows give the same result either
-        way)."""
+        way).  Host-discretized (eikonal) batches are discretized whole
+        first, planned from the host param_stats, and the chunks take row
+        slices of their centroid tables."""
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
         model = get_source_model(self.source_type)
         pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
-        shape = self._batch_shape(model, pb)
-        moments, risetimes = self._post_factors(model, pb)
-        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape,
-                                 self._param_stats(model, pb), gsize=int(shape[-1]))
-        if plan["rctx"] is None:
-            raise NotImplementedError(_TODO_NORMS)
+        edt = self.effective_dt
+        if model.host_discretize:
+            stats = self._param_stats(model, pb)
+            tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
+            plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats,
+                                     gsize=gsize)
+            if plan["forward_batch"] is None:
+                raise NotImplementedError(_TODO_WINDOW)
+            if plan["rctx"] is None:
+                raise NotImplementedError(_TODO_NORMS)
+            fwd = plan["forward_batch"]
+
+            def rows(i, j):
+                return {k: v[i:j] for k, v in tables.items()}
+        else:
+            shape = self._batch_shape(model, pb)
+            moments, risetimes = self._post_factors(model, pb)
+            plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape,
+                                     self._param_stats(model, pb), gsize=int(shape[-1]))
+            if plan["rctx"] is None:
+                raise NotImplementedError(_TODO_NORMS)
+            fwd = self._batch_forward(model, pb, plan, risetimes)
+            pbt = torch.as_tensor(pb, device=self.device)
+
+            def rows(i, j):
+                return model.discretize(pbt[i:j], edt, shape)
+
+        dev = self.device
+        mts = torch.as_tensor(moments, device=dev)
+        rts = torch.as_tensor(risetimes, device=dev)
+        b = pb.shape[0]
+        chunk = max(1, min(b, self.memory_budget // max(plan["per_source_bytes"], 1)))
+        chunk = -(-b // -(-b // chunk))  # balanced chunks
+        outs = [fwd(rows(i, i + chunk), mts[i:i + chunk], rts[i:i + chunk])
+                for i in range(0, b, chunk)]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    @staticmethod
+    def _batch_forward(model, pb, plan, risetimes):
+        """The forward of a device-discretized batch: the fused kernel for
+        shared kinematics when it applies, else the matmul forward; the
+        window kernel for all others."""
         shared = pb.shape[0] >= 2 and model.shared_kin_check(pb)
         if shared and plan["use_fused_scan"] and (risetimes == risetimes[0]).all():
             fused = plan["forward_shared_fused"]
@@ -528,20 +825,7 @@ class Engine:
             fwd = plan["forward_batch"]
         else:
             raise NotImplementedError(_TODO_WINDOW)
-
-        dev = self.device
-        pbt = torch.as_tensor(pb, device=dev)
-        mts = torch.as_tensor(moments, device=dev)
-        rts = torch.as_tensor(risetimes, device=dev)
-        b = pb.shape[0]
-        chunk = max(1, min(b, self.memory_budget // max(plan["per_source_bytes"], 1)))
-        chunk = -(-b // -(-b // chunk))  # balanced chunks
-        outs = [fwd(model.discretize(pbt[i:i + chunk], self.effective_dt, shape),
-                    mts[i:i + chunk], rts[i:i + chunk])
-                for i in range(0, b, chunk)]
-        if len(outs) == 1:
-            return outs[0]
-        return tuple(torch.cat(parts) for parts in zip(*outs))
+        return fwd
 
     def global_misfits_for_source_batch(self, params_batch):
         """Global misfits f32[B] (minimizer_engine.f90:935-942) for parameter
@@ -574,6 +858,10 @@ class Engine:
         # a covering value range.  effective_dt is in the key because
         # set_effective_dt (alone among the setters) does not invalidate
         # the plan
+        if model.host_discretize:  # no device-side tiling for host tables
+            pb = np.tile(base, (n, 1))
+            pb[:, col] = values
+            return self.global_misfits_for_source_batch(pb)
         mkey = (self.source_type, col, n, self.effective_dt, base.tobytes())
         hit = self._sweep_memo.get(mkey)
         if hit is not None and hit[0] is self._plan and (
@@ -616,9 +904,7 @@ class Engine:
     def get_synthetic_seismograms(self):
         """[(values f32[n], itmin)] per rc row, scaled (moment + rise time),
         trimmed to the physical data span -- probe_get_plain equivalents."""
-        plan = self._current_plan()
-        cbatch, moments, risetimes, _shape, _gsize = self._discretize_batch(
-            self.source_params[None, :])
+        plan, cbatch, moments, risetimes = self._current_tables()
         cent = {k: v[0] for k, v in cbatch.items()}
         syn, lo, hi = plan["synth_one"](
             cent, float(np.float32(moments[0])),

@@ -1,6 +1,6 @@
-"""Waveform misfits: the floating norms (port of the parts of
-kiwi_tpu/misfit.py that the point sweep and the finite-source batches
-reach).
+"""Waveform misfits: the floating norms and the time-domain norms (port of
+the parts of kiwi_tpu/misfit.py that the point sweep, the finite-source
+batches and the eikonal grid search reach).
 
 A "probe" is a power-of-two-length float32 array over a static absolute
 index span [ps0, ps0+pl), with the reference's extension convention: zeros
@@ -11,7 +11,10 @@ range and keep the minimum summed misfit per receiver
 scan kernel on shared-kinematics plans, from the scan kernel over
 precomputed synthetics on unfiltered finite-source plans (both in
 ops/float_scan.py), and from plain torch with exact span masks on filtered
-finite-source plans (evaluate_misfits).
+finite-source plans (evaluate_misfits).  The time-domain norms (l2norm,
+l1norm, scalar_product, peak) have no kernel in either package:
+evaluate_misfits computes them in plain torch, batched over sources.  The
+spectral norms raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ NORM_NAMES = {
     "floating_l1norm": FLOATING_L1NORM,
 }
 FLOATING = (FLOATING_L2NORM, FLOATING_L1NORM)
+TIME_DOMAIN = (L2NORM, L1NORM, SCALAR_PRODUCT, PEAK)
+_TODO_SPECTRAL = ("the spectral misfit norms (ampspec_l2norm, ampspec_l1norm) are not "
+                  "ported yet (ROADMAP.md queue 1, item 11)")
 
 
 def next_pow2(n):
@@ -288,6 +294,43 @@ def apply_fold(vals, w):
     return (w[..., :, None] * gathered).sum(dim=-2)
 
 
+def norm_spans(ctx, syn_lo, syn_hi, st: ProbeStatic):
+    """Span over which time-domain norms integrate
+    (probes_norm_timedomain, comparator.f90:770-822): the taper span when
+    tapers are set, else the union of data spans.  syn_lo/syn_hi [..., RC]."""
+    lo = torch.where(ctx["has_taper"], ctx["taper_lo"], torch.minimum(ctx["ref_lo"], syn_lo))
+    hi = torch.where(ctx["has_taper"], ctx["taper_hi"], torch.maximum(ctx["ref_hi"], syn_hi))
+    return lo, hi
+
+
+def pair_norms(ctx, ref_arr, syn_arr, mask, method, st: ProbeStatic):
+    """misfit = |ref - syn| and norm factor = |ref| under a time-domain
+    `method`, summed over the last axis (l2norm_func etc.,
+    comparator.f90:627-697).  ref/syn are the processed arrays to compare
+    (filtered > tapered > plain, chosen by the caller); syn is scaled by the
+    rows' syn_factor.  Shapes broadcast: ref [RC, W] against syn [B, RC, W].
+    Sums are float32, as in the JAX package."""
+    dt = np.float32(st.dt)
+    fb = ctx["syn_factor"][..., None]
+    if method == L2NORM:
+        diff = ref_arr - fb * syn_arr
+        m = gsqrt(dt * torch.sum(diff * diff * mask, dim=-1))
+        n = gsqrt(dt * torch.sum(ref_arr * ref_arr * mask, dim=-1))
+    elif method == L1NORM:
+        diff = ref_arr - fb * syn_arr
+        m = dt * torch.sum(torch.abs(diff) * mask, dim=-1)
+        n = dt * torch.sum(torch.abs(ref_arr) * mask, dim=-1)
+    elif method == SCALAR_PRODUCT:
+        m = torch.sum(ref_arr * fb * syn_arr * mask, dim=-1)
+        n = torch.sum(ref_arr * ref_arr * mask, dim=-1)
+    elif method == PEAK:
+        m = torch.amax(gsqrt(ref_arr**2 + (fb * syn_arr) ** 2) * mask, dim=-1)
+        n = torch.amax(torch.abs(ref_arr) * mask, dim=-1)
+    else:
+        raise ValueError(f"unsupported time-domain method {method}")
+    return m, n
+
+
 def ref_norm_spans(ctx, shift=0):
     """Span of the reference-only norm factor (probe_norm_timedomain,
     comparator.f90:824-859): the taper span if defined, else the ref data
@@ -298,26 +341,36 @@ def ref_norm_spans(ctx, shift=0):
 
 
 def _ref_norm(ref_proc, mask, method, st: ProbeStatic):
-    """l1/l2 reference norm factor over the masked span."""
+    """Reference norm factor of a time-domain method over the masked span."""
     dt = np.float32(st.dt)
     if method == L2NORM:
         return torch.sqrt(dt * torch.sum(ref_proc * ref_proc * mask, dim=-1))
     if method == L1NORM:
         return dt * torch.sum(torch.abs(ref_proc) * mask, dim=-1)
-    raise NotImplementedError(
-        f"misfit method {method} is not ported yet (ROADMAP.md queue 1, item 11)")
+    if method == SCALAR_PRODUCT:
+        return torch.sum(ref_proc * ref_proc * mask, dim=-1)
+    if method == PEAK:
+        return torch.amax(torch.abs(ref_proc) * mask, dim=-1)
+    raise ValueError(f"unsupported method {method}")
 
 
 def precompute_ref_context(ctx, method, st: ProbeStatic, shiftrange=(0, 0),
                            any_taper=True, any_filter=True):
-    """Source-independent misfit quantities for a floating norm, computed
-    once per plan: the processed reference for every trial shift
+    """Source-independent misfit quantities, computed once per plan.  For a
+    floating norm: the processed reference for every trial shift
     ref_proc f32[S, RC, PL], the shifted data spans, and the reference norm
-    factors (averaged over each row's allowed shifts)."""
+    factors (averaged over each row's allowed shifts).  For a time-domain
+    norm: the processed reference ref_proc f32[RC, PL] and its norm
+    factors."""
+    if method in TIME_DOMAIN:
+        tap_r, filt_r = processed_arrays(ctx, ctx["ref"], st, use_fft=any_filter)
+        ref_proc = torch.where(ctx["has_filter"][..., None], filt_r, tap_r)
+        nlo, nhi = ref_norm_spans(ctx)
+        norm = _ref_norm(ref_proc, _span_mask(nlo, nhi, st), method, st)
+        return {"method": method, "ref_proc": ref_proc,
+                "norm": torch.where(ctx["enabled"], norm, 0.0)}
     if method not in FLOATING:
-        raise NotImplementedError(
-            f"misfit method {method} is not ported yet: the port runs the "
-            "floating norms (ROADMAP.md queue 1, item 11 brings the others)")
+        raise NotImplementedError(_TODO_SPECTRAL)
     base = L2NORM if method == FLOATING_L2NORM else L1NORM
     s1, s2 = int(shiftrange[0]), int(shiftrange[1])
     dev = ctx["ref"].device
@@ -570,21 +623,21 @@ def evaluate_misfits_floating_batch(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi
 def evaluate_misfits(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st: ProbeStatic,
                      nrec, moments, risetimes, rctx, fold_nshift_max=0, any_filter=True,
                      eval_win=None, rids=None, chunk_elems=1 << 25):
-    """Per-model floating-norm evaluation with exact span masks: the
-    floating branch of kiwi_tpu.misfit.evaluate_misfits (which the JAX
-    engine vmaps over sources), batched over B.  It runs the probe chain
-    (taper -> rfft -> PLF filter -> irfft) on every synthetic, so it serves
-    the filtered plans the scan kernel cannot take; the JAX package has no
-    kernel for it either.  Chunked over B so that the [S, b, RC, W]
-    difference block stays under `chunk_elems` elements.
+    """Per-model evaluation with exact span masks: kiwi_tpu.misfit.
+    evaluate_misfits (which the JAX engine vmaps over sources) for the
+    floating and the time-domain norms, batched over B.  It runs the probe
+    chain (taper -> rfft -> PLF filter -> irfft) on every synthetic, so it
+    serves the filtered floating plans the scan kernel cannot take and every
+    time-domain plan; the JAX package has no kernel for either.  Floating
+    norms are chunked over B so that the [S, b, RC, W] difference block
+    stays under `chunk_elems` elements.
 
-    Arguments as evaluate_misfits_floating_batch.  Non-floating norms raise
-    NotImplementedError.  Returns (m [B, RC], norm [B, RC], floating_shift [B, R]).
+    Arguments as evaluate_misfits_floating_batch.  Returns (m [B, RC],
+    norm [B, RC], floating_shift [B, R]); the time-domain norms shift
+    nothing (zeros).
     """
-    if rctx is None or rctx["method"] not in FLOATING:
-        raise NotImplementedError(
-            "non-floating misfit norms are not ported yet (ROADMAP.md queue 1, item 11)")
-    l2 = rctx["base"] == L2NORM
+    if rctx is None:
+        raise NotImplementedError(_TODO_SPECTRAL)
     syn, syn_lo_b, syn_hi_b = _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b,
                                              syn_hi_b, st, moments, risetimes,
                                              fold_nshift_max)
@@ -596,6 +649,10 @@ def evaluate_misfits(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st: ProbeSt
         i1 = min(int(eval_win[1]) - st.ps0 + 1, st.pl)
     else:
         i0, i1 = 0, st.pl
+    if rctx["method"] in TIME_DOMAIN:
+        return _time_domain_misfits(ctx, rctx, syn_proc[..., i0:i1], syn_lo_b, syn_hi_b,
+                                    st, nrec, i0)
+    l2 = rctx["base"] == L2NORM
     # misfit spans per shift: the taper span or the union of data spans
     has_taper = ctx["has_taper"][None, None, :]
     lo = torch.where(has_taper, ctx["taper_lo"][None, None, :],
@@ -615,6 +672,28 @@ def evaluate_misfits(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st: ProbeSt
         u = diff * diff if l2 else torch.abs(diff)
         sums[:, sl] = torch.sum(u * mask, dim=-1)
     return _floating_select(ctx, rctx, sums.transpose(1, 2), st, nrec, rids)
+
+
+def _time_domain_misfits(ctx, rctx, syn_sl, syn_lo_b, syn_hi_b, st: ProbeStatic, nrec, i0):
+    """The time-domain branch of evaluate_misfits: syn_sl the processed,
+    moment-scaled synthetics [B, RC, W] on the probe slice from i0.  The
+    amplitude normalization is undone as in the JAX package: misfit and norm
+    are 1-homogeneous in (ref, syn_factor * syn), the scalar product
+    2-homogeneous, its s0 applied as chained multiplies (a bare s0 * s0
+    flushes to zero in float32 at moment-1.0 scales)."""
+    method = rctx["method"]
+    lo, hi = norm_spans(ctx, syn_lo_b, syn_hi_b, st)  # [B, RC]
+    j = st.ps0 + i0 + torch.arange(syn_sl.shape[-1], device=syn_sl.device)
+    mask = ((j >= lo[..., None]) & (j <= hi[..., None])).to(F32)
+    m, _ = pair_norms(ctx, rctx["ref_proc"][..., i0:i0 + syn_sl.shape[-1]], syn_sl, mask,
+                      method, st)
+    m = torch.where(ctx["enabled"], m, 0.0)
+    n = rctx["norm"][None, :].expand_as(m)
+    s0 = ctx["amp_scale"]
+    m, n = m * s0, n * s0
+    if method == SCALAR_PRODUCT:
+        m, n = m * s0, n * s0
+    return m, n, torch.zeros((m.shape[0], nrec), dtype=I32, device=m.device)
 
 
 def global_misfit(misfits, norms):

@@ -10,7 +10,8 @@ soft limits, defaults) and a two-stage discretizer:
   (the batch dimension written out where the JAX package vmaps).
 
 Centroid tables are dicts of tensors: north/east/depth/time f32[B, C],
-m f32[B, C, 6], active bool[B, C].
+m f32[B, C, 6], active bool[B, C].  The eikonal models discretize on the
+host instead (host_discretize; sources/eikonal.py).
 """
 
 from __future__ import annotations
@@ -53,6 +54,13 @@ class SourceModel:
     # discretizes to identical centroid positions/times/activity (only the
     # moment tensors differ) -- unlocks the shared-kinematics forward
     shared_kin_check: typing.Callable
+    # True: discretize(params_np, effective_dt, eikonal_context) runs on the
+    # host per source and returns numpy tables (the eikonal models; the
+    # engine also has a batched device discretizer for them)
+    host_discretize: bool = False
+    # True: param_stats takes (pb, effective_dt, eikonal_context) -- the
+    # time bound needs the layer shear speeds
+    param_stats_ctx: bool = False
 
     @property
     def nparams(self):
@@ -77,10 +85,8 @@ def get_source_model(name) -> SourceModel:
     try:
         return SOURCE_REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"source type {name!r} is not ported yet (the port has "
-            f"{sorted(SOURCE_REGISTRY)}; ROADMAP.md queue 1, item 13 brings "
-            "the eikonal sources)"
+        raise KeyError(
+            f"unknown source type {name!r}; available: {sorted(SOURCE_REGISTRY)}"
         ) from None
 
 

@@ -7,14 +7,16 @@ has no JAX, and tests/conftest.py imports it, so run them there with
 
 The kernels sum in another order than the plain versions (FMA contraction,
 partial sums), so the comparison is relative to the output's max at 1e-5,
-the repo's on-card bar.
+the repo's on-card bar.  The eikonal sweep kernel rounds as its plain
+version does (no contraction), so it compares at 1e-6 relative per cell,
+inside the JAX package's 1e-4 kernel-vs-XLA bar.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from kiwi_tpu_torch.ops import float_scan, synth_window
+from kiwi_tpu_torch.ops import eik_sweep, float_scan, synth_window
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +125,94 @@ def test_scan_kernel_matches_plain(cuda_dev, l2, S, RC, B, W):
     assert got.shape == (S, B, RC) and torch.isfinite(got).all()
     err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
     assert err <= 1e-5, err
+
+
+def _eik_operands(rng, B, nx, ny, dev):
+    speed = rng.uniform(1000.0, 4000.0, (B, nx, ny)).astype(np.float32)
+    delta = rng.uniform(50.0, 300.0, (B, 2)).astype(np.float32)
+    first = rng.uniform(-1000.0, 0.0, (B, 2)).astype(np.float32)
+    ip = (first + rng.uniform(0.0, 1.0, (B, 2)) * delta * [nx - 1, ny - 1]).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (speed, delta, first, ip)]
+
+
+@pytest.mark.parametrize("B,nx,ny,n_rounds", [
+    (37, 48, 40, 2),     # B not a multiple of 32, nx != ny
+    (5, 144, 136, 2),    # the eikonal benchmark's fine grid
+    (3, 31, 97, 1),      # odd ny (padded pitch), nx < one warp
+    (2, 1, 7, 3),        # one row
+    (2, 250, 240, 1),    # above the shared-memory limit: the grid in device memory
+    (2, 1100, 24, 1),    # nx > 1024: a thread takes two rows, grid in shared memory
+    (1, 1500, 60, 1),    # nx > 1024 above the shared-memory limit
+])
+def test_eik_sweep_kernel_matches_plain(cuda_dev, B, nx, ny, n_rounds):
+    rng = np.random.default_rng(B * 100 + nx)
+    args = _eik_operands(rng, B, nx, ny, cuda_dev)
+    before = eik_sweep.launches["eik_sweep"]
+    got = eik_sweep.sweep_solve_batch(*args, n_rounds=n_rounds)
+    torch.cuda.synchronize()
+    assert eik_sweep.launches["eik_sweep"] == before + 1
+    want = eik_sweep.sweep_solve_batch_reference(*args, n_rounds=n_rounds)
+    assert got.shape == (B, nx, ny)
+    reached = want < 1e29
+    assert torch.equal(got < 1e29, reached)
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-6))[reached].max().item()
+    assert rel <= 1e-6, rel
+
+
+def test_eik_sweep_kernel_rejects(cuda_dev):
+    rng = np.random.default_rng(0)
+    speed, delta, first, ip = _eik_operands(rng, 2, 8, 8, cuda_dev)
+    with pytest.raises(ValueError, match="f32"):
+        eik_sweep.sweep_solve_batch(speed.double(), delta, first, ip)
+    with pytest.raises(ValueError, match="one device"):
+        eik_sweep.sweep_solve_batch(speed, delta.cpu(), first, ip)
+
+
+def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
+    """A device discretization that disagrees with the host FMM oracle on
+    members i > 0 raises on a CUDA engine (the CPU engine falls back to the
+    host pipeline instead, tests/test_torch_eikonal.py), naming the member."""
+    from kiwi_tpu_torch import geo
+    from kiwi_tpu_torch.engine import Engine, Receiver
+    from kiwi_tpu_torch.gf import elseis
+    from kiwi_tpu_torch.sources import eikonal as eiksrc
+
+    store = elseis.build_ahfull_store(
+        nx=45, nz=8, dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
+        material=(2300.0, 3200.0, 1600.0), stf=np.array([0, 0, 0.3, 0.7, 1, 1, 1.0]))
+    eng = Engine(store, device=cuda_dev)
+    olat, olon = 30.0, 70.0
+    recs = []
+    for d, az in [(1500.0, 0.0), (2300.0, 1.2), (3100.0, -2.0), (2700.0, 2.6)]:
+        la, lo = geo.ne_to_latlon(np.radians(olat), np.radians(olon), d * np.cos(az),
+                                  d * np.sin(az))
+        recs.append(Receiver(np.degrees(float(la)), np.degrees(float(lo)), "ned"))
+    eng.set_receivers(recs)
+    eng.set_source_location(olat, olon, 0.0)
+    eng.set_effective_dt(0.1)
+    eng.set_local_interpolation(True)
+    eng.set_misfit_method("l2norm")
+    eng.set_source_constraints([[0, 0, 50.0], [0, 0, 700.0]], [[0, 0, -1.0], [0, 0, 1.0]])
+    p = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 30.0, 80.0, 164.0, 0.0, 0.0, 250.0, 50.0, -50.0,
+                  0.9, 0.3], dtype=np.float32)
+    eng.set_source_params("eikonal", p)
+    eng.set_synthetic_reference()
+    batch = np.tile(p, (4, 1))
+    batch[:, 10] = [200.0, 250.0, 300.0, 350.0]
+    assert np.argmin(eng.global_misfits_for_source_batch(batch).cpu().numpy()) == 1
+
+    real = eiksrc.discretize_device_batch
+
+    def corrupt(*args, **kw):
+        out = dict(real(*args, **kw))
+        north = out["north"].clone()
+        north[1:] += 3000.0
+        out["north"] = north
+        return out
+
+    monkeypatch.setattr(eiksrc, "discretize_device_batch", corrupt)
+    eng._eikonal_checked_keys.clear()
+    eng._invalidate()
+    with pytest.raises(RuntimeError, match="disagrees with the host FMM oracle.*member 1"):
+        eng.global_misfits_for_source_batch(batch)
+    assert eng.eikonal_device is True

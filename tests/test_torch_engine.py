@@ -135,17 +135,29 @@ def test_memo_key_has_effective_dt(engines):
 
 
 def test_outside_the_slice_raises(engines):
-    """Non-floating norms and the eikonal sources are not ported yet; each
-    raises naming its ROADMAP.md item (finite faults are ported now:
-    tests/test_torch_finite.py)."""
+    """The spectral norms are not ported yet and raise naming their
+    ROADMAP.md item; an unknown source type raises naming the ported ones
+    (finite faults, the time-domain norms and the eikonal sources are ported
+    now: tests/test_torch_finite.py, tests/test_torch_eikonal.py)."""
     _je, te = engines
-    _configure(te, "l2norm")
+    _configure(te, "ampspec_l2norm")
     with pytest.raises(NotImplementedError, match="item 11"):
         te.sweep_global_misfits(BASE, 5, STRIKES)
     with pytest.raises(NotImplementedError, match="item 11"):
         te.misfits_for_source_batch(np.tile(BASE, (2, 1)))
-    with pytest.raises(NotImplementedError, match="not ported.*item 13"):
-        te.set_source_params("eikonal", np.zeros(7, np.float32))
+    with pytest.raises(KeyError, match="eikonal"):
+        te.set_source_params("no_such_source", np.zeros(7, np.float32))
+
+
+def test_engine_defaults_to_the_card(engines):
+    """Engine(store) with no device runs on "cuda"; without a card its first
+    tensor operation raises instead of falling back to the CPU."""
+    _je, te = engines
+    eng = TEngine(te.store)
+    assert eng.device.type == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            _configure(eng, "floating_l1norm")
 
 
 def test_set_source_location_takes_ref_time(engines):

@@ -1,7 +1,8 @@
-"""Parity of the port's floating-norm misfit path (kiwi_tpu_torch.misfit)
-with the JAX package, on seeded random probes: the reference context
-(shifted, tapered, filtered references and their norm factors) and the
-fused evaluation, the JAX side running its Pallas kernel in interpret mode.
+"""Parity of the port's misfit path (kiwi_tpu_torch.misfit: the floating and
+the time-domain norms) with the JAX package, on seeded random probes: the
+reference context (shifted, tapered, filtered references and their norm
+factors) and the evaluations, the JAX side running its Pallas kernels in
+interpret mode.
 
 Tolerances: processed references and norms 1e-6 of the max (the FFT and
 the sums run in other orders); misfits 2e-5 of the max
@@ -202,3 +203,53 @@ def test_floating_eval_matches(taper, filt, fold, method):
     _close(got[0], m, 2e-5)
     _close(got[1], n, 2e-5)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(fs))
+
+
+@pytest.mark.parametrize("taper,filt,fold,amp", [
+    (False, False, 0, 1.0), (True, False, 2, 1.0), (False, True, 0, 1.0), (True, True, 2, 1.0),
+    (False, False, 2, 1e-19)])
+@pytest.mark.parametrize("method", [jmf.L2NORM, jmf.L1NORM, jmf.SCALAR_PRODUCT, jmf.PEAK])
+def test_time_domain_eval_matches(taper, filt, fold, amp, method):
+    """The time-domain norms (no shift scan: the eikonal grid search's
+    l2norm and its siblings) against the JAX package's evaluate_misfits
+    under vmap, with and without a taper and a filter, at rtol 1e-5.  The
+    moment-1.0 scale (amp 1e-19) pins the amplitude unscaling, which the
+    scalar product applies twice."""
+    jst, jctx, tst, tctx = _setups(taper, filt, seed=10, amp=amp)
+    syn, lo, hi, moments, risetimes = _batch_inputs(11 + fold, B=6)
+    syn = syn * np.float32(amp)
+    syn_it0 = 8
+    eval_win = (ST["ps0"] + 10, ST["ps0"] + 100)
+    jr = jmf.precompute_ref_context(jctx, method, jst, (0, 0), taper, filt)
+
+    def one(s, lo1, hi1, mo, rt):
+        return jmf.evaluate_misfits(jctx, s, syn_it0, lo1, hi1, method, jst, NREC, moment=mo,
+                                    risetime=rt, fold_nshift_max=fold, rctx=jr,
+                                    any_taper=taper, any_filter=filt, eval_win=eval_win)
+
+    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, lo, hi, moments, risetimes)))
+    tr = tmf.precompute_ref_context(tctx, method, tst, (0, 0), taper, filt)
+    np.testing.assert_allclose(tr["norm"].numpy(), np.asarray(jr["norm"]), rtol=1e-5)
+    got = tmf.evaluate_misfits(
+        tctx, torch.as_tensor(syn), syn_it0, torch.as_tensor(lo), torch.as_tensor(hi), tst,
+        NREC, torch.as_tensor(moments), torch.as_tensor(risetimes), tr, fold_nshift_max=fold,
+        any_filter=filt, eval_win=eval_win)
+    m, n, fs = (np.asarray(x) for x in want)
+    # the floor: XLA flushes float32 subnormals to zero and torch keeps them,
+    # which the scalar product's 1e-38 values at amp 1e-19 reach
+    tiny = float(np.finfo(np.float32).tiny)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert np.abs(m).max() > 0 and np.abs(n).max() > 0
+    np.testing.assert_allclose(got[0].numpy(), m, rtol=1e-5,
+                               atol=max(1e-6 * np.abs(m).max(), tiny))
+    np.testing.assert_allclose(got[1].numpy(), n, rtol=1e-5,
+                               atol=max(1e-6 * np.abs(n).max(), tiny))
+    np.testing.assert_array_equal(got[2].numpy(), fs)
+    assert not fs.any()
+
+
+def test_spectral_norms_raise():
+    jst, jctx, tst, tctx = _setups(False, False)
+    for method in (tmf.AMPSPEC_L2NORM, tmf.AMPSPEC_L1NORM):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tmf.precompute_ref_context(tctx, method, tst)
