@@ -21,15 +21,17 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    256 strikes per global_misfits_for_source_batch call; capture the window
    kernel's and the scan kernel's operands from one call and hold each
    kernel against its plain version (scan: l1 and l2), timed by CUDA
-   events; then the window kernel on seeded long-window operands (ng 8 and
-   10, nt_ext ~600, G 1, 3 and 8);
+   events, with the window kernel's launch plan, its share of empty
+   groups and its reckoned L2 reads; then the window kernel on seeded
+   long-window operands (ng 8 and 10, nt_ext ~600, G 1, 3 and 8);
 5. eikonal: bench_eikonal's session (the same store and receivers, l2norm,
    no floating shift, constraints z in [50, 700] m, an eikonal rupture of
    radius 250 m as the synthetic reference through the host FMM path);
    capture the fast-sweeping kernel's operands from one 384-radius batch
    (speed [384, 144, 136]) and hold it against its plain version (1e-4
    relative per reached cell), timed; then time it on seeded 1100 x 300
-   grids (more rows than threads, the time grid in device memory);
+   grids (more rows than threads, the time grid in device memory); and the
+   window kernel on the same batch's operands, as in 4;
 6. the main paths, each with the launch counters set to 0 just before it
    and read just after: both point sweeps (8 calls each), both finite
    configurations (8 and 4 batches of 256 strikes, linspace(0, 359) plus
@@ -51,7 +53,8 @@ Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
 launches on the main paths, its error against its plain version, its
 time, the plain version's, one PyTorch call's where one computes the same
-function, and its roofline bound from this run's shapes), and last
+function, and its roofline bound from this run's shapes and data; the
+window kernel's numbers are those of the finite batch), and last
 {"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
 device it exits nonzero and prints no result.
 """
@@ -281,6 +284,85 @@ def check_kernel(name, args, kw, results):
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
+def window_reads(args):
+    """Reckoned L2 reads of the window kernel's blends on these operands:
+    the share of (b, r, group) triples whose centroids all carry f = 0, and
+    the bytes of window rows read in full for every triple, only over the
+    samples a live group's shifts reach, and once per distinct live node of
+    a tile of bt = 4, 8 or 16 consecutive sources over the tile's sample
+    range."""
+    import torch
+
+    ext, node_rows, strides3, kk, wrows, _wsp, nt_out = args
+    _N, ng, nt_ext = ext.shape
+    B, R, P = node_rows.shape
+    sample = 4 * ng  # bytes of one sample of one node's rows
+    live_c = (wrows[..., :6] != 0).any(-1)  # [B, R, P, G]
+    live = live_c.any(-1)
+    k = kk.clamp(0, nt_ext - nt_out - 1).long()
+    lo = k.amin(-1)[:, None].expand(B, R, P)
+    hi = k.amax(-1)[:, None].expand(B, R, P) + nt_out + 1
+    spans = int(((hi - lo) * live).sum())
+    reads = {"empty_share": 1.0 - float(live.float().mean()),
+             "live_centroids": int(live_c.sum()), "live_spans": spans,
+             "full": 4 * B * R * P * nt_ext * sample, "trimmed": 4 * spans * sample}
+    offs = torch.tensor((0,) + tuple(int(s) for s in strides3), device=node_rows.device)
+    nodes = node_rows.long()[..., None] + offs  # [B, R, P, 4]
+    for bt in (4, 8, 16):
+        def tiles(x, fill):  # [B, ...] -> [B / bt, bt, ...], the ragged tile padded
+            pad = -B % bt
+            if pad:
+                x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+            return x.reshape(-1, bt, *x.shape[1:])
+
+        lv = tiles(live, False)  # [T, bt, R, P]
+        nd = tiles(nodes, -1).masked_fill(~lv[..., None], -1)
+        nd = nd.permute(0, 2, 3, 1, 4).reshape(lv.shape[0], R, P, 4 * bt).sort(-1).values
+        distinct = (nd[..., 0] >= 0).long() + ((nd[..., 1:] != nd[..., :-1])
+                                               & (nd[..., 1:] >= 0)).sum(-1)
+        tlo = tiles(lo, 0).masked_fill(~lv, nt_ext).amin(1)  # [T, R, P]
+        thi = tiles(hi, 0).masked_fill(~lv, 0).amax(1)
+        reads[f"tile{bt}"] = int((distinct * (thi - tlo).clamp(min=0)).sum()) * sample
+    return reads
+
+
+def check_window(args, kw, label, results):
+    """The window kernel against its plain version on one batch's captured
+    operands, timed beside its bound; the reckoned L2 reads logged."""
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    ext, node_rows, strides3, kk, wrows, wsp, nt_out = args
+    N, ng, nt_ext = ext.shape
+    B, R, P = node_rows.shape
+    G = kk.shape[2]
+    log(f"  window_synth shapes ({label}): B={B} R={R} P={P} G={G} ng={ng} nt_ext={nt_ext} "
+        f"nt_out={nt_out} N={N} strides={tuple(strides3)}; sources per block "
+        f"{sw.launch_plan(ng, nt_ext, nt_out, B)} (1: the direct instance)")
+    reads = window_reads(args)
+    log(f"  window_synth reads ({label}): {reads['empty_share']:.2%} of (b, r, group) empty; "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in reads.items()
+                    if k in ("full", "trimmed") or k.startswith("tile")))
+    got = sw.window_forward(*args, **kw)
+    want = sw.window_forward_reference(*args, **kw)
+    rec = record_err(results, "window_synth", got, want, f"{label} batch operands")
+    ms = cuda_ms(lambda: sw.window_forward(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: sw.window_forward_reference(*args, **kw), 3)
+    # the work these operands need: per live (b, r, group) the 4-node blend
+    # over the samples its shifts reach, 7 flop per (component, sample); per
+    # live centroid and output sample the moment contraction (2 ng), the
+    # rotation (6), the 2-tap shift of 3 channels (9), the accumulation (3)
+    io = nbytes(ext, node_rows, kk, wrows, wsp) + 4 * B * R * 3 * nt_out
+    bound_ms, bound_by = bound(io, 7 * ng * reads["live_spans"]
+                               + reads["live_centroids"] * nt_out * (2 * ng + 18))
+    full_ms, full_by = bound(io, B * R * P * (7 * ng * nt_ext + G * nt_out * (2 * ng + 18)))
+    log(f"  window_synth ({label}): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}; every group over nt_ext: {full_ms:.4f} ms, "
+        f"{full_by})")
+    if "ms" not in rec:  # the JSON line carries the first (finite) batch's times
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)  # no one PyTorch call does blend + contraction + shift
+
+
 def check_finite_kernels(eng, strikes, results):
     """The window and scan kernels against their plain versions on the
     operands of one 256-model finite batch (the engine's own), timed."""
@@ -297,26 +379,7 @@ def check_finite_kernels(eng, strikes, results):
     if len(windows) != 1 or len(scans) != 1:
         fail(f"expected one window and one scan call per batch, saw {len(windows)}, {len(scans)}")
     args, kw = windows[0]
-    ext, node_rows, strides3, kk, wrows, wsp, nt_out = args
-    N, ng, nt_ext = ext.shape
-    B, R, P = node_rows.shape
-    G = kk.shape[2]
-    log(f"  window_synth shapes: B={B} R={R} P={P} G={G} ng={ng} nt_ext={nt_ext} "
-        f"nt_out={nt_out} N={N} strides={tuple(strides3)}")
-    got = sw.window_forward(*args, **kw)
-    want = sw.window_forward_reference(*args, **kw)
-    rec = record_err(results, "window_synth", got, want, "finite batch operands")
-    rec["ms"] = cuda_ms(lambda: sw.window_forward(*args, **kw), 20)
-    rec["plain_ms"] = cuda_ms(lambda: sw.window_forward_reference(*args, **kw), 3)
-    # per (b, r, group): the 4-node blend, 7 flop per (component, sample);
-    # per centroid and output sample: the moment contraction (2 ng), the
-    # rotation (6), the 2-tap shift of 3 channels (9), the accumulation (3)
-    rec["bound_ms"], rec["bound_by"] = bound(
-        nbytes(ext, node_rows, kk, wrows, wsp) + 4 * B * R * 3 * nt_out,
-        B * R * P * (7 * ng * nt_ext + G * nt_out * (2 * ng + 18)))
-    rec["library_ms"] = None  # no one PyTorch call does the blend + contraction + shift
-    log(f"  window_synth: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    check_window(args, kw, "finite", results)
 
     (ref, syn), skw = scans[0]
     RC, Bs, W = syn.shape
@@ -376,12 +439,16 @@ def check_eikonal_kernel(eng, radii, results):
     plan, table calibration and the host cross-check), timed."""
     import torch
 
-    from kiwi_tpu_torch.ops import eik_sweep as es
+    from kiwi_tpu_torch.ops import eik_sweep as es, synth_window as sw
 
-    seen = capture(es, "sweep_solve_batch",
-                   lambda: eng.global_misfits_for_source_batch(eik_rows(radii)))
+    windows = []
+    seen = capture(es, "sweep_solve_batch", lambda: windows.extend(capture(
+        sw, "window_forward", lambda: eng.global_misfits_for_source_batch(eik_rows(radii)))))
     if len(seen) != 1:
         fail(f"expected one eikonal solve per batch, saw {len(seen)}")
+    windows = [w for w in windows if w[0][1].shape[0] == radii.size]
+    if len(windows) != 1:
+        fail(f"expected one {radii.size}-model window synthesis per batch, saw {len(windows)}")
     (speed, delta, first, ip), kw = seen[0]
     n_rounds = kw["n_rounds"]
     B, nx, ny = speed.shape
@@ -442,6 +509,9 @@ def check_eikonal_kernel(eng, radii, results):
     ms = cuda_ms(lambda: es.sweep_solve_batch(*wide, n_rounds=n_rounds), 5)
     log(f"  eik_sweep: {wb} sources of {wnx} x {wny} (time grid in device memory): {ms:.4f} ms, "
         f"{ms / wsteps * 1e3:.4f} us per step")
+
+    log(f"phase kernel-vs-plain window_synth ({radii.size}-radius batch operands):")
+    check_window(*windows[0], "eikonal", results)
 
 
 def run_main_path(label, launch_names, run):

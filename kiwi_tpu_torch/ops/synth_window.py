@@ -14,9 +14,11 @@ kiwi_tpu/ops/synth_window.py:_kernel, _kernel_dma and _kernel_compact,
 which differ only in TPU memory placement.  Its operands are compact: no
 lane broadcasts, no 8-row group split, no receiver packing, no row pitch.
 What bounds it on an H100 is the blend's reads of the GF window (L2
-resident at the benchmark's 13.5 MB); its design stages each group's
-blended rows once in shared memory for all G centroids and all output
-samples.  See the source's header.
+resident at the benchmark's 13.5 MB).  It skips groups and centroids whose
+moment weights are all zero, blends only the samples the live shifts
+reach, and runs a tile of consecutive sources, which mostly read the same
+node rows, in one block (launch_plan chooses the tile).  See the source's
+header.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  There is no fallback between them.
@@ -39,6 +41,12 @@ launches = {"window_synth": 0}
 
 NW = 10  # weight row per centroid: f1..f6, cos_l, sin_l, 1 - frac, frac
 T_MAX = 2048  # longest extended time axis the kernel takes (80 KB of shared memory)
+# launch geometry of csrc/synth_window.cu: a source tile of at most BT
+# warps (kTileMaxBt), whose lanes hold at most 8 shifted samples each
+# (kTileSlots)
+BT = 4  # sources per tile: the fastest of 4, 8 and 16 on an H100 (PERF.md)
+TILE_SLOTS = 8
+SMEM_MAX = 227 * 1024  # shared memory one block may use on an H100
 
 
 def usable(cfg):
@@ -100,9 +108,30 @@ def pack_kinematics(cfg, kin, G):
 def _library():
     lib = build.load("synth_window.cu")
     fn = lib.kiwi_window_synth
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def launch_plan(ng, nt_ext, nt_out, B):
+    """Sources per block for these shapes: 2..BT for the source-tile
+    instance, 1 for the direct instance.
+
+    The source tile runs bt consecutive sources of one receiver in one
+    block, a warp each, with a blend buffer of ng * nt_ext floats per warp;
+    its lanes hold the shifted samples 0..nt_out, at most TILE_SLOTS each.
+    bt starts at BT, is cut to the batch (a power of two no wider than B
+    needs) and halved until the buffers fit SMEM_MAX.  Below a tile of 2
+    (one-source batches, windows too long for the buffers or the lanes'
+    registers) the direct instance, one block per (source, receiver), takes
+    the call.
+    """
+    if nt_out >= 32 * TILE_SLOTS:
+        return 1
+    bt = min(BT, 1 << max(B - 1, 0).bit_length())
+    while bt >= 2 and bt * 4 * ng * nt_ext > SMEM_MAX:
+        bt //= 2
+    return max(bt, 1)
 
 
 def _check(ext, node_rows, s3, kk, wrows, wsp, nt_out):
@@ -143,6 +172,7 @@ def window_forward(ext, node_rows, strides3, kk, wrows, wsp, nt_out):
         return window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out)
     if dev.type != "cuda":
         raise ValueError(f"window_forward runs on cpu or cuda tensors, not {dev}")
+    bt = launch_plan(ng, nt_ext, nt_out, B)
     ext, node_rows, kk = ext.contiguous(), node_rows.contiguous(), kk.contiguous()
     wrows, wsp = wrows.contiguous(), wsp.contiguous()
     out = torch.empty((B, R, 3, nt_out), dtype=F32, device=dev)
@@ -151,7 +181,7 @@ def window_forward(ext, node_rows, strides3, kk, wrows, wsp, nt_out):
         err = _library().kiwi_window_synth(
             ext.data_ptr(), node_rows.data_ptr(), kk.data_ptr(), wrows.data_ptr(),
             wsp.data_ptr(), out.data_ptr(), N, ng, nt_ext, nt_out, B, R, P, G,
-            s1, s2, s3, stream)
+            s1, s2, s3, bt, stream)
     if err != 0:
         raise RuntimeError(f"kiwi_window_synth launch failed: CUDA error {err}")
     launches["window_synth"] += 1

@@ -72,13 +72,27 @@ def test_kernel_rejects_deep_contraction(cuda_dev):
         float_scan.fused_scan_sums(*args, **kw)
 
 
-def _window_operands(rng, ng, G, nt_ext, nt_out, B, zu, dev, nxw=20, nzw=8, R=3, P=4):
+def _window_operands(rng, ng, G, nt_ext, nt_out, B, zu, dev, layout="random", nxw=20, nzw=8,
+                     R=3, P=4):
+    """Seeded window operands.  layout "random": every (b, r, p) at its own
+    node; "shared": one origin per (r, p), moved by up to two nodes for a
+    random quarter of the sources (what a strike sweep gives neighbouring
+    sources); "empty": as "random" with f1..f6 = 0 for ~40% of the groups
+    and for every group of (b, r) = (0, 1)."""
     s = (zu, zu * nzw, zu * nzw + zu)  # xunder = zunder = zu
     N = nxw * nzw
     ext = rng.standard_normal((N, ng, nt_ext)).astype(np.float32)
     node_rows = rng.integers(0, N - s[2], size=(B, R, P)).astype(np.int32)
+    if layout == "shared":
+        moved = rng.uniform(size=(B, R, P)) < 0.25
+        node_rows = np.broadcast_to(node_rows[:1], (B, R, P)) + moved * rng.integers(
+            -2, 3, size=(B, R, P))
+        node_rows = np.clip(node_rows, 0, N - 1 - s[2]).astype(np.int32)
     kk = rng.integers(0, nt_ext - nt_out, size=(B, P, G)).astype(np.int32)
     wrows = rng.standard_normal((B, R, P, G, synth_window.NW)).astype(np.float32)
+    if layout == "empty":
+        wrows[rng.uniform(size=(B, R, P)) < 0.4, :, :6] = 0.0
+        wrows[0, 1, :, :, :6] = 0.0
     wsp = rng.uniform(0.0, 1.0, (B, R, P, 4)).astype(np.float32)
     args = [torch.as_tensor(a, device=dev) for a in (ext, node_rows)]
     args.append(s)
@@ -86,22 +100,52 @@ def _window_operands(rng, ng, G, nt_ext, nt_out, B, zu, dev, nxw=20, nzw=8, R=3,
     return args
 
 
-@pytest.mark.parametrize("ng,G,nt_ext,nt_out,B,zu", [
-    (10, 3, 104, 80, 257, 1),    # the finite benchmark's group shape, ragged B
-    (8, 1, 600, 560, 1, 2),      # a long window (finite_long), one model
-    (10, 8, 600, 500, 3, 2),
-    (8, 64, 104, 80, 5, 1),      # a deep group: G is a runtime loop
-    (10, 1, 2048, 2000, 2, 1),   # the longest window: 80 KB of shared memory
+@pytest.mark.parametrize("ng,G,nt_ext,nt_out,B,zu,layout,instance", [
+    (10, 3, 104, 80, 257, 1, "random", "tile"),   # the finite benchmark's group shape, ragged B
+    (10, 3, 104, 80, 64, 1, "shared", "tile"),    # neighbouring sources share node rows
+    (10, 1, 136, 96, 61, 1, "shared", "tile"),    # the eikonal benchmark's group shape
+    (10, 3, 104, 80, 13, 1, "empty", "tile"),     # empty groups; B not a multiple of the tile
+    (8, 1, 136, 96, 16, 2, "empty", "tile"),
+    (10, 3, 105, 80, 20, 1, "shared", "tile"),    # nt_ext % 4 != 0: one float per load
+    (8, 3, 300, 200, 9, 1, "shared", "tile"),     # 7 shifted samples per lane
+    (10, 1, 2048, 200, 8, 1, "shared", "tile"),   # a tile of 2: 160 KB of shared memory
+    (8, 1, 600, 560, 1, 2, "random", "direct"),   # a long window (finite_long), one model
+    (10, 8, 600, 500, 3, 2, "random", "direct"),  # too many samples for a lane's registers
+    (8, 64, 104, 80, 5, 1, "random", "tile"),     # a deep group: G is a runtime loop
+    (8, 64, 104, 80, 37, 1, "shared", "tile"),
+    (10, 1, 2048, 2000, 2, 1, "random", "direct"),  # the longest window: the direct instance
+    (10, 3, 2048, 2000, 3, 1, "empty", "direct"),
 ])
-def test_window_kernel_matches_plain(cuda_dev, ng, G, nt_ext, nt_out, B, zu):
-    rng = np.random.default_rng(ng * 1000 + G * 10 + zu)
-    args = _window_operands(rng, ng, G, nt_ext, nt_out, B, zu, cuda_dev)
+def test_window_kernel_matches_plain(cuda_dev, ng, G, nt_ext, nt_out, B, zu, layout, instance):
+    rng = np.random.default_rng(ng * 1000 + G * 10 + zu + B)
+    args = _window_operands(rng, ng, G, nt_ext, nt_out, B, zu, cuda_dev, layout)
+    assert (synth_window.launch_plan(ng, nt_ext, nt_out, B) > 1) == (instance == "tile")
     before = synth_window.launches["window_synth"]
     got = synth_window.window_forward(*args, nt_out)
     torch.cuda.synchronize()
     assert synth_window.launches["window_synth"] == before + 1
     want = synth_window.window_forward_reference(*args, nt_out)
     assert got.shape == (B, 3, 3, nt_out) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= 1e-5, err
+    if layout == "empty":  # a (b, r) whose groups are all empty gives exact zeros
+        assert not got[0, 1].any()
+
+
+@pytest.mark.parametrize("B,bt", [(1, 1), (2, 2), (3, 4), (45, 4)])
+@pytest.mark.parametrize("layout", ["shared", "empty"])
+def test_window_kernel_tiles_match_plain(cuda_dev, B, bt, layout):
+    """Every source tile the chooser picks at the finite benchmark's group
+    shape, reached through the batch size (1: the direct instance; 3 and
+    45: a ragged last tile)."""
+    rng = np.random.default_rng(B)
+    args = _window_operands(rng, 10, 3, 104, 80, B, 1, cuda_dev, layout)
+    assert synth_window.launch_plan(10, 104, 80, B) == bt
+    before = synth_window.launches["window_synth"]
+    got = synth_window.window_forward(*args, 80)
+    torch.cuda.synchronize()
+    assert synth_window.launches["window_synth"] == before + 1
+    want = synth_window.window_forward_reference(*args, 80)
     err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
     assert err <= 1e-5, err
 

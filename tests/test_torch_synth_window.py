@@ -205,3 +205,71 @@ def test_window_synthesis_matches(ng, G, under, nt_out):
 
     want_x = np.asarray(jax.vmap(jax.vmap(grouped))({k: jnp.asarray(v) for k, v in kin.items()}))
     np.testing.assert_allclose(got.numpy(), want_x, rtol=0, atol=1e-5 * np.abs(want_x).max())
+
+
+@pytest.mark.parametrize("ng", [8, 10])
+@pytest.mark.parametrize("nt_ext,nt_out", [
+    (104, 80),     # the finite benchmark
+    (136, 96),     # the eikonal benchmark
+    (24, 1),       # one output sample
+    (600, 560),    # finite_long
+    (1024, 900),
+    (2048, 200),   # a long window with few output samples: a narrower tile
+    (2048, 2000),  # the longest window
+])
+@pytest.mark.parametrize("B", [1, 3, 256, 384])
+def test_launch_plan_fits_the_card(ng, nt_ext, nt_out, B):
+    """The wrapper's tile and shared-memory chooser (G, up to 64, does not
+    enter it): a source tile of at least one source, shared memory within
+    the H100's 227 KB per block, at most TILE_SLOTS shifted samples per
+    lane, and the direct instance where a tile cannot run."""
+    bt = tsw.launch_plan(ng, nt_ext, nt_out, B)
+    row = 4 * ng * nt_ext  # bytes of one source's blend buffer
+    assert 1 <= bt <= tsw.BT and bt * row <= tsw.SMEM_MAX
+    if bt > 1:  # the source tile
+        assert bt < 2 * B  # no tile wider than the batch needs
+        assert nt_out + 1 <= 32 * tsw.TILE_SLOTS
+        assert 2 * bt * row > tsw.SMEM_MAX or 2 * bt > min(tsw.BT, 2 * B - 1)  # the widest that fits
+    if B == 1 or nt_out >= 32 * tsw.TILE_SLOTS:  # nothing to share, or too many samples a lane
+        assert bt == 1
+    elif nt_ext == 2048:  # an 80 KB (ng 10) or 64 KB (ng 8) buffer per source
+        assert bt == 2
+    else:
+        assert bt == min(tsw.BT, 1 << (B - 1).bit_length())
+    if B >= 256 and nt_ext <= 136:  # the benchmark shapes take the full tile
+        assert bt == tsw.BT
+
+
+@pytest.mark.parametrize("ng,G,under", [(10, 3, 1), (8, 1, 2), (10, 8, 1), (8, 64, 1)])
+def test_empty_groups_contribute_exact_zeros(ng, G, under):
+    """What the kernel's skip relies on: a (source, receiver, group) whose
+    centroids all carry f1..f6 = 0 adds exact zeros, so the plain version
+    gives the same output bit for bit whatever rows and bilinear weights
+    such a group points at.  (Removing the groups instead would reorder
+    torch's sum and change its rounding.)"""
+    rng = np.random.default_rng(7 * ng + G)
+    nxw, nzw, s_len, nt_out = 12, 8, 24, 64
+    cfg = ts.SynthConfig(dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0, ng=ng, nt=200,
+                         ix0=3, nxw=nxw, iz0=0, nzw=nzw, out_it0=20, nt_out=nt_out, s_base=-6,
+                         s_len=s_len, interpolate=True, xunder=under, zunder=under)
+    B, R, P = 3, 4, 5
+    kin = _synthetic_kin(rng, cfg, B, R, G, P)
+    dead = rng.uniform(size=(B, R, P)) < 0.4
+    dead[1, 2] = True  # one (source, receiver) with every group empty
+    kin["valid"] &= ~np.repeat(dead, G, axis=2)
+    ext = tsw.pack_ext(torch.as_tensor(
+        rng.standard_normal((nxw, nzw, ng, nt_out + s_len)).astype(np.float32)), cfg)
+    node_rows, kk, wrows, wsp = tsw.pack_kinematics(
+        cfg, {k: torch.as_tensor(v) for k, v in kin.items()}, G)
+    empty = (wrows[..., :6] == 0).all(-1).all(-1)
+    assert empty[torch.as_tensor(dead)].all()  # and groups of invalid centroids
+    want = tsw.window_forward_reference(ext, node_rows, tsw.strides(cfg), kk, wrows, wsp, nt_out)
+    moved = node_rows.clone()
+    moved[empty] = torch.as_tensor(
+        rng.integers(0, node_rows.max().item() + 1, int(empty.sum())).astype(np.int32))
+    other_wsp = wsp.clone()
+    other_wsp[empty] = torch.as_tensor(
+        rng.uniform(0.0, 1.0, (int(empty.sum()), 4)).astype(np.float32))
+    got = tsw.window_forward(ext, moved, tsw.strides(cfg), kk, wrows, other_wsp, nt_out)
+    assert torch.equal(got, want)
+    assert not got[1, 2].any()
