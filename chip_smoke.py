@@ -29,7 +29,9 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    radius 250 m as the synthetic reference through the host FMM path);
    capture the fast-sweeping kernel's operands from one 384-radius batch
    (speed [384, 144, 136]) and hold it against its plain version (1e-4
-   relative per reached cell), timed; then time it on seeded 1100 x 300
+   relative per reached cell, and bit for bit: 0 cells may differ), timed,
+   per step at one, two and three sources per SM, beside its chain floor
+   (EIK_CHAIN_CYCLES per step at the maximum SM clock); then time it on seeded 1100 x 300
    grids (more rows than threads, the time grid in device memory); and the
    window kernel on the same batch's operands, as in 4;
 6. the main paths, each with the launch counters set to 0 just before it
@@ -87,6 +89,11 @@ EIK_BASE = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 30.0, 80.0, 164.0, 0.0, 0.0, 25
 EIK_B = 384  # radii per batch (bench.py:476)
 TOL = 1e-5  # the repo's on-card relative bar (bench.py:194)
 EIK_TOL = 1e-4  # kernel vs plain arrival times (tests/test_eikonal.py:208-209)
+# SM cycles of the dependent instructions of one step of the eikonal sweep
+# kernel: the shuffle, the ~18 float operations and the reciprocal square
+# root that each step waits on (PERF.md, PR 6: that chain alone, one warp,
+# timed with clock64 on an H100)
+EIK_CHAIN_CYCLES = 145
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 flop/s
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
@@ -465,10 +472,14 @@ def check_eikonal_kernel(eng, radii, results):
         fail("eik_sweep reaches other cells than its plain version")
     err = (got - want).abs()[reached]
     rel = float((err / want.abs()[reached].clamp(min=1e-30)).max())
+    ndiff = int((got != want).sum())
     log(f"  eik_sweep: {int(reached.sum())} reached cells of {want.numel()}: max abs err "
-        f"{float(err.max()):.3e}, max rel err {rel:.3e}")
+        f"{float(err.max()):.3e}, max rel err {rel:.3e}; cells that differ from the plain "
+        f"version: {ndiff}")
     if not rel <= EIK_TOL:
         fail(f"eik_sweep disagrees with its plain version: rel err {rel:.3e} > {EIK_TOL}")
+    if ndiff:  # the kernel rounds as the plain version does, step for step
+        fail(f"eik_sweep differs from its plain version in {ndiff} cells (it must equal it)")
     rec = results["eik_sweep"] = {"max_abs_err": float(err.max()), "max_rel_err": rel}
     rec["ms"] = cuda_ms(lambda: es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds),
                         20)
@@ -480,23 +491,31 @@ def check_eikonal_kernel(eng, radii, results):
                                              26 * B * nx * ny * 4 * n_rounds)
     rec["library_ms"] = None  # no PyTorch call solves an eikonal equation
     # the dependency chain: one block per source, as many resident per SM as
-    # their shared-memory time grids allow (228 KB per SM, 1 KB reserved per
-    # block), so the call runs `waves` chains of `steps` barrier-separated steps
-    shared = nx * (ny + (ny & 1)) * 4
-    per_sm = max(1, min(228 * 1024 // (shared + 1024), 2048 // (-(-nx // 32) * 32)))
-    waves = -(-B // (per_sm * torch.cuda.get_device_properties(speed.device).multi_processor_count))
+    # their shared memory allows (228 KB per SM, 1 KB reserved per block; the
+    # time grid and a boundary row of ny + 64 words per pair of warps), so
+    # the call runs `waves` chains of `steps` dependent steps
+    warps = -(-nx // 32)
+    shared = nx * (ny + (ny & 1)) * 4 + max(warps - 1, 1) * (ny + 64) * 4
+    sms = torch.cuda.get_device_properties(speed.device).multi_processor_count
+    per_sm = max(1, min(228 * 1024 // (shared + 1024), 64 // warps))
+    waves = -(-B // (per_sm * sms))
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    floor_ms = waves * steps * EIK_CHAIN_CYCLES / (mhz * 1e3)
     log(f"  eik_sweep: kernel {rec['ms']:.4f} ms = {waves} waves x {steps} steps x "
         f"{rec['ms'] / (waves * steps) * 1e3:.4f} us per step ({per_sm} blocks per SM), "
         f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
-    # residency: one wave of one and of `per_sm` blocks per SM (what a
-    # block per SM would cost per step, were both grids staged in shared memory)
-    sms = torch.cuda.get_device_properties(speed.device).multi_processor_count
-    for nb in sorted({min(B, sms), min(B, per_sm * sms)}):
-        ms = cuda_ms(lambda: es.sweep_solve_batch(speed[:nb], delta[:nb], first[:nb], ip[:nb],
-                                                  n_rounds=n_rounds), 20)
-        log(f"  eik_sweep: {nb} sources (one wave, {-(-nb // sms)} per SM): {ms:.4f} ms, "
-            f"{ms / steps * 1e3:.4f} us per step")
+        f"({rec['bound_by']}); chain floor {floor_ms:.4f} ms ({waves} waves x {steps} steps x "
+        f"{EIK_CHAIN_CYCLES} cycles at the {mhz:.0f} MHz maximum SM clock)")
+    # per step at one, two and three sources per SM: the batch's sources
+    # taken in turn to fill one wave of each
+    for k in (1, 2, 3):
+        idx = torch.arange(k * sms, device=speed.device) % B
+        ops = [a[idx].contiguous() for a in (speed, delta, first, ip)]
+        ms = cuda_ms(lambda: es.sweep_solve_batch(*ops, n_rounds=n_rounds), 10)
+        log(f"  eik_sweep: {k * sms} sources ({k} per SM): {ms:.4f} ms, "
+            f"{ms / (-(-k // per_sm) * steps) * 1e3:.4f} us per step")
     # a rupture wider than the benchmark's: nx > 1024 rows (a thread takes
     # two) and a time grid above the shared-memory limit (in device memory)
     gen = torch.Generator(device=speed.device).manual_seed(7)

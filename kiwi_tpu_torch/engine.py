@@ -57,7 +57,7 @@ from .sources import get_source_model
 F32 = torch.float32
 
 # an unported case names the ROADMAP.md (queue 1) item that brings it
-_TODO_NORMS = "spectral misfit norms (ampspec_l1norm, ampspec_l2norm): ROADMAP.md queue 1, item 11"
+_TODO_NORMS = "spectral misfit norms (ampspec_l1norm, ampspec_l2norm): ROADMAP.md queue 1, item 4"
 LOG = logging.getLogger("kiwi_tpu_torch")
 _TODO_WINDOW = ("plans outside the window kernel (extended time axis above "
                 f"{synth_window.T_MAX} samples, or a GF store with other than 8 or 10 "
@@ -140,6 +140,10 @@ class Engine:
 
     # -- configuration (each invalidates the plan as needed) -----------------
 
+    def set_database(self, store: GFStore):
+        self.store = store
+        self._invalidate()
+
     def set_local_interpolation(self, on: bool):
         self.interpolate = bool(on)
         self._invalidate()
@@ -157,6 +161,12 @@ class Engine:
         self._refs.clear()
         self._tapers.clear()
         self._filters.clear()
+        self._invalidate()
+
+    def switch_receiver(self, irec: int, on: bool):
+        """Take receiver irec into the misfits or leave it out (its rows
+        then weigh nothing in the global misfit)."""
+        self.receivers[irec].enabled = bool(on)
         self._invalidate()
 
     def set_source_location(self, lat_deg, lon_deg, ref_time=0.0):
@@ -254,6 +264,16 @@ class Engine:
             hi = max(self.floating_shiftrange_s[1], float(tmax))
             self.floating_shiftrange_s = (lo, hi)
         self._invalidate()
+
+    def set_ref_seismogram(self, irec, comp_char, values, itmin):
+        """Install a reference trace for (receiver, component); itmin is the
+        absolute sample index of the first value (time = itmin*dt)."""
+        for irc, (r, c) in enumerate(self._rc_layout()):
+            if r == irec and c == comp_char:
+                self._refs[irc] = (np.asarray(values, np.float32), int(itmin))
+                self._invalidate()
+                return
+        raise KeyError(f"receiver {irec} has no component {comp_char!r}")
 
     # -- internals ------------------------------------------------------------
 
@@ -521,16 +541,15 @@ class Engine:
 
     def _batch_shape(self, model, pb):
         """The single discretization grid shape of a batch (shape-relevant
-        columns deduplicated first)."""
+        columns deduplicated first); ValueError if the rows need several."""
         cols = pb[:, list(model.shape_param_idx)]
         rows = cols[:1] if (cols == cols[0]).all() else np.unique(cols, axis=0)
         full = np.tile(pb[0], (rows.shape[0], 1))
         full[:, list(model.shape_param_idx)] = rows
         shapes = {model.grid_shape(p, self.effective_dt) for p in full}
         if len(shapes) != 1:
-            raise NotImplementedError(
-                f"source batch has mixed grid shapes {shapes}; shape bucketing "
-                "belongs to the grid-search path: ROADMAP.md queue 1, item 14")
+            raise ValueError(f"source batch has mixed grid shapes {shapes}; bucket the batch "
+                             "by shape (sweep_global_misfits does)")
         return shapes.pop()
 
     def _post_factors(self, model, pb):
@@ -843,7 +862,8 @@ class Engine:
         kernel, and reduced to one global misfit per row
         (minimizer_engine.f90:935-942).  Other sweeps (finite faults whose
         geometry the column moves, deep contractions) go through
-        global_misfits_for_source_batch, as the JAX package's fallback does.
+        global_misfits_for_source_batch, one batch per discretization grid
+        shape where the column changes it, as the JAX package's fallback does.
         """
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
@@ -859,9 +879,7 @@ class Engine:
         # set_effective_dt (alone among the setters) does not invalidate
         # the plan
         if model.host_discretize:  # no device-side tiling for host tables
-            pb = np.tile(base, (n, 1))
-            pb[:, col] = values
-            return self.global_misfits_for_source_batch(pb)
+            return self._sweep_by_batches(model, base, col, values)
         mkey = (self.source_type, col, n, self.effective_dt, base.tobytes())
         hit = self._sweep_memo.get(mkey)
         if hit is not None and hit[0] is self._plan and (
@@ -871,7 +889,10 @@ class Engine:
         # sweep's full range without materializing the batch
         pb3 = np.tile(base, (3, 1))
         pb3[:, col] = (vmin, vmax, float(base[col]))
-        shape = self._batch_shape(model, pb3)
+        try:
+            shape = self._batch_shape(model, pb3)
+        except ValueError:
+            return self._sweep_by_batches(model, base, col, values)
         stats = self._param_stats(model, pb3)
         _m3, r3 = self._post_factors(model, pb3)
         plan = self._ensure_plan(float(r3.max(initial=0.0)), shape, stats,
@@ -883,9 +904,7 @@ class Engine:
         # risetimes == batch-uniform risetimes (the STF fold of the shared
         # values rows then commutes with the contraction)
         if not (shared and plan["use_fused_scan"] and (r3 == r3[0]).all() and n <= 65536):
-            pb = np.tile(base, (n, 1))
-            pb[:, col] = values
-            return self.global_misfits_for_source_batch(pb)
+            return self._sweep_by_batches(model, base, col, values)
         edt = self.effective_dt
         fwd = plan["forward_shared_fused"]
 
@@ -900,6 +919,25 @@ class Engine:
         basej = torch.as_tensor(base, device=self.device)
         self._sweep_memo[mkey] = (self._plan, vmin, vmax, sweep_fn, basej)
         return sweep_fn(basej, torch.as_tensor(values, device=self.device))
+
+    def _sweep_by_batches(self, model, base, col, values):
+        """The sweep's rows through global_misfits_for_source_batch; if they
+        span several discretization grid shapes (its ValueError), each
+        shape's rows apart, scattered back into one f32[N]
+        (kiwi_tpu/engine.py:1222-1240)."""
+        pb = np.tile(base, (values.shape[0], 1))
+        pb[:, col] = values
+        try:
+            return self.global_misfits_for_source_batch(pb)
+        except ValueError:
+            groups = {}
+            for i, row in enumerate(pb):
+                groups.setdefault(model.grid_shape(row, self.effective_dt), []).append(i)
+            out = torch.zeros(len(pb), dtype=F32, device=self.device)
+            for idx in groups.values():
+                out[torch.as_tensor(idx, device=self.device)] = (
+                    self.global_misfits_for_source_batch(pb[idx]).to(F32))
+            return out
 
     def get_synthetic_seismograms(self):
         """[(values f32[n], itmin)] per rc row, scaled (moment + rise time),

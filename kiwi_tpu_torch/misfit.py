@@ -52,7 +52,7 @@ NORM_NAMES = {
 FLOATING = (FLOATING_L2NORM, FLOATING_L1NORM)
 TIME_DOMAIN = (L2NORM, L1NORM, SCALAR_PRODUCT, PEAK)
 _TODO_SPECTRAL = ("the spectral misfit norms (ampspec_l2norm, ampspec_l1norm) are not "
-                  "ported yet (ROADMAP.md queue 1, item 11)")
+                  "ported yet (ROADMAP.md queue 1, item 4)")
 
 
 def next_pow2(n):

@@ -14,9 +14,13 @@ the update is a running min against a nonnegative candidate.
 The kernel (csrc/eik_sweep.cu) replaces the TPU kernel
 kiwi_tpu/ops/eik_sweep.py:_sweep_dir_kernel and the XLA skew/unskew and
 flips around it: one block per source runs all 4 x n_rounds sweeps in one
-launch with the source's time grid in shared memory.  What bounds it is the
-chain of (nx + ny - 1) x 4 x n_rounds dependent diagonal steps, each ended
-by a block barrier, not bytes or operations.  See the source's header.
+launch with the source's time grid in shared memory, one warp per 32 rows
+as a pipelined wavefront (lane L one step behind lane L - 1, warp w + 1
+behind warp w through a boundary row in shared memory), no block barrier
+inside a sweep.  What bounds it is the chain of (nx + ny - 1) x 4 x
+n_rounds dependent steps, not bytes or operations.  Grids over 512 rows
+or above the shared-memory limit take the first design (one thread per
+row, a block barrier per anti-diagonal).  See the source's header.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  There is no fallback between them.

@@ -8,8 +8,8 @@ has no JAX, and tests/conftest.py imports it, so run them there with
 The kernels sum in another order than the plain versions (FMA contraction,
 partial sums), so the comparison is relative to the output's max at 1e-5,
 the repo's on-card bar.  The eikonal sweep kernel rounds as its plain
-version does (no contraction), so it compares at 1e-6 relative per cell,
-inside the JAX package's 1e-4 kernel-vs-XLA bar.
+version does (no contraction, the same update order), so it must equal it
+bit for bit.
 """
 
 import numpy as np
@@ -171,12 +171,32 @@ def test_scan_kernel_matches_plain(cuda_dev, l2, S, RC, B, W):
     assert err <= 1e-5, err
 
 
-def _eik_operands(rng, B, nx, ny, dev):
+def _eik_operands(rng, B, nx, ny, dev, frac=None, scale=1.0):
+    """Seeded solve operands, cells of 50-300 m times `scale`; frac in
+    [0, 1] per axis puts every source's seed at that fraction of the grid
+    (1: the last row or column), else a random cell."""
     speed = rng.uniform(1000.0, 4000.0, (B, nx, ny)).astype(np.float32)
-    delta = rng.uniform(50.0, 300.0, (B, 2)).astype(np.float32)
-    first = rng.uniform(-1000.0, 0.0, (B, 2)).astype(np.float32)
-    ip = (first + rng.uniform(0.0, 1.0, (B, 2)) * delta * [nx - 1, ny - 1]).astype(np.float32)
+    delta = (rng.uniform(50.0, 300.0, (B, 2)) * scale).astype(np.float32)
+    first = (rng.uniform(-1000.0, 0.0, (B, 2)) * scale).astype(np.float32)
+    f = rng.uniform(0.0, 1.0, (B, 2)) * [nx - 1, ny - 1] if frac is None else (
+        np.array(frac, np.float64) * [nx - 0.5, ny - 0.5])
+    ip = (first + f * delta).astype(np.float32)
     return [torch.as_tensor(a, device=dev) for a in (speed, delta, first, ip)]
+
+
+def _eik_check(args, n_rounds):
+    """The kernel against its plain version: the same cells reached, and
+    every reached cell bit for bit (no contraction, the same roundings)."""
+    before = eik_sweep.launches["eik_sweep"]
+    got = eik_sweep.sweep_solve_batch(*args, n_rounds=n_rounds)
+    torch.cuda.synchronize()
+    assert eik_sweep.launches["eik_sweep"] == before + 1
+    want = eik_sweep.sweep_solve_batch_reference(*args, n_rounds=n_rounds)
+    assert got.shape == want.shape
+    reached = want < 1e29
+    assert torch.equal(got < 1e29, reached)
+    assert torch.equal(got[reached], want[reached]), int((got != want)[reached].sum())
+    return got
 
 
 @pytest.mark.parametrize("B,nx,ny,n_rounds", [
@@ -184,23 +204,72 @@ def _eik_operands(rng, B, nx, ny, dev):
     (5, 144, 136, 2),    # the eikonal benchmark's fine grid
     (3, 31, 97, 1),      # odd ny (padded pitch), nx < one warp
     (2, 1, 7, 3),        # one row
+    (2, 600, 80, 1),     # nx > 512: the first design (a barrier per diagonal), shared grid
     (2, 250, 240, 1),    # above the shared-memory limit: the grid in device memory
     (2, 1100, 24, 1),    # nx > 1024: a thread takes two rows, grid in shared memory
     (1, 1500, 60, 1),    # nx > 1024 above the shared-memory limit
 ])
 def test_eik_sweep_kernel_matches_plain(cuda_dev, B, nx, ny, n_rounds):
     rng = np.random.default_rng(B * 100 + nx)
-    args = _eik_operands(rng, B, nx, ny, cuda_dev)
-    before = eik_sweep.launches["eik_sweep"]
-    got = eik_sweep.sweep_solve_batch(*args, n_rounds=n_rounds)
-    torch.cuda.synchronize()
-    assert eik_sweep.launches["eik_sweep"] == before + 1
-    want = eik_sweep.sweep_solve_batch_reference(*args, n_rounds=n_rounds)
-    assert got.shape == (B, nx, ny)
-    reached = want < 1e29
-    assert torch.equal(got < 1e29, reached)
-    rel = ((got - want).abs() / want.abs().clamp(min=1e-6))[reached].max().item()
-    assert rel <= 1e-6, rel
+    _eik_check(_eik_operands(rng, B, nx, ny, cuda_dev), n_rounds)
+
+
+@pytest.mark.parametrize("n_rounds", [1, 2])
+@pytest.mark.parametrize("corner", [(0, 0), (1, 1), (0, 1), (1, 0)])
+@pytest.mark.parametrize("ny", [1, 2, 136])
+@pytest.mark.parametrize("nx", [32, 33, 64, 65, 160])
+def test_eik_sweep_warp_edges(cuda_dev, nx, ny, corner, n_rounds):
+    """Rows at and just past a warp's 32 (a partial last warp of one row),
+    one and two columns, the seed in the first or last row and column."""
+    rng = np.random.default_rng(nx * 1000 + ny * 10 + 2 * corner[0] + corner[1])
+    _eik_check(_eik_operands(rng, 2, nx, ny, cuda_dev, frac=corner), n_rounds)
+
+
+@pytest.mark.parametrize("scale", [2e-8, 1e-14])
+def test_eik_sweep_tiny_cells(cuda_dev, scale):
+    """Cells so small that the square root's argument da^2 dc^2 (da^2 + dc^2
+    - diff^2) falls below 2^-101 (scale 2e-8: cells of 1-6 um), where the
+    kernel's branch-free root scales it, or to exactly 0 (1e-14: da^2 dc^2
+    underflows); the 2-D candidate is then as small as the 1-D terms, so
+    its root decides the result."""
+    rng = np.random.default_rng(int(1 / scale) % 1000)
+    args = _eik_operands(rng, 3, 70, 50, cuda_dev, scale=scale)
+    da2dc2 = (args[1][:, 0] ** 2 * args[1][:, 1] ** 2).cpu().numpy()
+    assert (da2dc2 < 2.0 ** -60).all() if scale > 1e-10 else (da2dc2 == 0).all()
+    for n_rounds in (1, 2):
+        _eik_check(args, n_rounds)
+
+
+def _boundary_operands(dev, nx=160, ny=136):
+    """One source whose every direction's first sweep lowers cells on both
+    sides of every warp boundary (flipped rows 31 | 32, 63 | 64, ...): the
+    seed in the first row and a speed field of slow and fast bands at an
+    angle, so that the fastest paths turn in all four directions."""
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    speed = 2500.0 + 2000.0 * np.sin(i / 9.0 + j / 13.0) * np.cos(i / 17.0 - j / 7.0)
+    ops = (speed[None].astype(np.float32), np.array([[100.0, 120.0]], np.float32),
+           np.zeros((1, 2), np.float32), np.array([[50.0, 120.0 * 70.5]], np.float32))
+    return [torch.as_tensor(a, device=dev) for a in ops]
+
+
+def test_eik_sweep_warp_boundaries_change(cuda_dev, monkeypatch):
+    args = _boundary_operands(cuda_dev)
+    nx = args[0].shape[1]
+    # the plain version sweep by sweep: the first 1, 2, 3, 4 directions of round 1
+    real = eik_sweep._diagonals
+    states = []
+    for ndir in range(5):
+        monkeypatch.setattr(eik_sweep, "_diagonals", lambda a, b, n=ndir: real(a, b)[:n])
+        states.append(eik_sweep.sweep_solve_batch_reference(*args, n_rounds=1)[0])
+    monkeypatch.setattr(eik_sweep, "_diagonals", real)
+    for d, (flip0, _flip1) in enumerate(eik_sweep.DIRS):
+        lowered = (states[d + 1] < states[d]).any(dim=1)  # per row
+        if flip0:
+            lowered = lowered.flip(0)  # flipped rows
+        for edge in range(32, nx, 32):
+            assert lowered[edge - 1] and lowered[edge], (d, edge)
+    for n_rounds in (1, 2):
+        _eik_check(args, n_rounds)
 
 
 def test_eik_sweep_kernel_rejects(cuda_dev):

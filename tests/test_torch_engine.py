@@ -136,14 +136,14 @@ def test_memo_key_has_effective_dt(engines):
 
 def test_outside_the_slice_raises(engines):
     """The spectral norms are not ported yet and raise naming their
-    ROADMAP.md item; an unknown source type raises naming the ported ones
+    ROADMAP.md item (queue 1, item 4); an unknown source type raises naming the ported ones
     (finite faults, the time-domain norms and the eikonal sources are ported
     now: tests/test_torch_finite.py, tests/test_torch_eikonal.py)."""
     _je, te = engines
     _configure(te, "ampspec_l2norm")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         te.sweep_global_misfits(BASE, 5, STRIKES)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         te.misfits_for_source_batch(np.tile(BASE, (2, 1)))
     with pytest.raises(KeyError, match="eikonal"):
         te.set_source_params("no_such_source", np.zeros(7, np.float32))
@@ -206,6 +206,90 @@ def test_spacial_undersampling_matches(engines, monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5 * want.max())
     for eng in engines:
         eng.set_spacial_undersampling(1, 1)
+
+
+def _observed(je, seed=6):
+    """An observed reference neither engine synthesized: the JAX engine's
+    synthetics scaled by 1.3, zero-padded by 3 samples on each side, moved
+    2 samples earlier, with seeded noise at 5% of each trace's max."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for values, itmin in je.get_synthetic_seismograms():
+        v = np.pad(1.3 * values, 3)
+        v = v + 0.05 * float(np.abs(values).max()) * rng.standard_normal(v.shape)
+        out.append((v.astype(np.float32), itmin - 3 - 2))
+    return out
+
+
+def _set_refs(eng, traces):
+    for irc, (v, itmin) in enumerate(traces):
+        eng.set_ref_seismogram(irc // 3, "ned"[irc % 3], v, itmin)
+
+
+@pytest.mark.parametrize("method", ["floating_l1norm", "floating_l2norm"])
+def test_observed_reference_matches(engines, monkeypatch, method):
+    """References installed through set_ref_seismogram, then receiver 1
+    switched off: the fused sweep on both engines."""
+    je, te = engines
+    for eng in engines:
+        _configure(eng, method)
+    traces = _observed(je)
+    for eng in engines:
+        _set_refs(eng, traces)
+    assert te._plan is None
+    for irc, (v, itmin) in enumerate(traces):
+        assert te._refs[irc][0].dtype == np.float32 and te._refs[irc][1] == itmin
+        np.testing.assert_array_equal(te._refs[irc][0], je._refs[irc][0])
+    all_on = te.sweep_global_misfits(BASE, 5, STRIKES).numpy()
+    np.testing.assert_allclose(all_on, _jax_sweep(je, monkeypatch, BASE, STRIKES), rtol=2e-5)
+    for eng in engines:
+        eng.switch_receiver(1, False)
+    assert te._plan is None and not te.receivers[1].enabled
+    want = _jax_sweep(je, monkeypatch, BASE, STRIKES)
+    got = te.sweep_global_misfits(BASE, 5, STRIKES)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5)
+    assert np.abs(got.numpy() - all_on).max() > 1e-3 * np.abs(all_on).max()
+    assert got.numpy().min() > 1e-3  # the noise keeps every row off 0
+
+
+def test_set_ref_seismogram_needs_the_component(engines):
+    for eng in engines:
+        _configure(eng, "floating_l1norm")
+        refs = dict(eng._refs)
+        for irec, comp in ((0, "z"), (0, "a"), (4, "n")):
+            with pytest.raises(KeyError, match=f"receiver {irec} has no component"):
+                eng.set_ref_seismogram(irec, comp, np.ones(5), 10)
+        assert eng._refs.keys() == refs.keys()
+        eng.set_ref_seismogram(2, "d", np.arange(4.0), -3)  # row 2 * 3 + 2 replaced
+        assert eng._refs[8][0].dtype == np.float32 and eng._refs[8][1] == -3
+
+
+def test_set_database_matches(engines, monkeypatch):
+    """set_database to a second store (another material) keeps the session's
+    references and invalidates the plan: both engines then sweep the second
+    store's synthetics against the first store's reference."""
+    je, te = engines
+    for eng in engines:
+        _configure(eng, "floating_l2norm")
+    first = te.sweep_global_misfits(BASE, 5, STRIKES).numpy()
+    store = elseis.build_ahfull_store(
+        nx=40, nz=6, dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
+        material=(2500.0, 3500.0, 1800.0), stf=np.array([0, 0, 0.3, 0.7, 1, 1, 1.0]),
+    )
+    tstore = TStore.from_numpy(store.dt, store.dx, store.dz, store.firstx, store.firstz,
+                               store.data, store.itmin, store.nsamples)
+    old = je.store, te.store
+    try:
+        je.set_database(store)
+        te.set_database(tstore)
+        assert te.store is tstore and te._plan is None and len(te._refs) == 12
+        want = _jax_sweep(je, monkeypatch, BASE, STRIKES)
+        got = te.sweep_global_misfits(BASE, 5, STRIKES).numpy()
+    finally:
+        je.set_database(old[0])
+        te.set_database(old[1])
+    np.testing.assert_allclose(got, want, rtol=2e-5)
+    assert np.abs(got - first).max() > 1e-2 * np.abs(first).max()
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -146,6 +146,51 @@ def test_finite_sweep_matches(engines):
     assert int(np.argmin(got.numpy())) == int(np.argmin(want))
 
 
+def test_sweep_across_grid_shapes(engines):
+    """A length-a sweep (column 9) changes the fault's subfault grid: both
+    engines evaluate each grid shape's rows apart and scatter them back."""
+    je, te = engines
+    for eng in engines:
+        _configure(eng, "floating_l1norm")
+    lengths = np.linspace(500.0, 1500.0, 6).astype(np.float32)
+    shapes = {tmodel("bilateral").grid_shape(r, EDT) for r in _batch(col=9, values=lengths)}
+    assert len(shapes) == 6, shapes  # one subfault grid per length
+    want = np.asarray(je.sweep_global_misfits(FAULT, 9, lengths))
+    got = te.sweep_global_misfits(FAULT, 9, lengths)
+    assert got.dtype == torch.float32 and got.device == te.device
+    _close(got, want)
+    # a batch with mixed shapes is the caller's to bucket
+    for eng in engines:
+        with pytest.raises(ValueError, match="mixed grid shapes"):
+            eng.misfits_for_source_batch(_batch(col=9, values=lengths))
+
+
+@pytest.mark.parametrize("method", ["floating_l1norm", "l2norm"])
+def test_observed_reference_matches(engines, method):
+    """References installed through set_ref_seismogram (the JAX engine's
+    synthetics scaled by 1.3, zero-padded, moved 2 samples earlier, seeded
+    noise), receiver 1 switched off: the finite batch on both engines."""
+    je, te = engines
+    for eng in engines:
+        _configure(eng, method)
+    rng = np.random.default_rng(6)
+    traces = []
+    for values, itmin in je.get_synthetic_seismograms():
+        v = np.pad(1.3 * values, 3)
+        v = v + 0.05 * float(np.abs(values).max()) * rng.standard_normal(v.shape)
+        traces.append((v.astype(np.float32), itmin - 5))
+    for eng in engines:
+        for irc, (v, itmin) in enumerate(traces):
+            eng.set_ref_seismogram(irc // 3, "ned"[irc % 3], v, itmin)
+        eng.switch_receiver(1, False)
+    pb = _batch()
+    want, got = _both(engines, pb)
+    _check(want, got)
+    _close(te.global_misfits_for_source_batch(pb), je.global_misfits_for_source_batch(pb))
+    assert not te.receivers[1].enabled
+    assert not got[0][:, 3:6].any()  # the switched-off receiver's rows weigh nothing
+
+
 @pytest.mark.parametrize("method", ["floating_l1norm", "floating_l2norm"])
 def test_shared_sweep_beyond_the_fused_kernel(engines, method):
     """A slip-rake sweep of the fault keeps every centroid in place (shared

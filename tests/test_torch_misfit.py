@@ -251,5 +251,5 @@ def test_time_domain_eval_matches(taper, filt, fold, amp, method):
 def test_spectral_norms_raise():
     jst, jctx, tst, tctx = _setups(False, False)
     for method in (tmf.AMPSPEC_L2NORM, tmf.AMPSPEC_L1NORM):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
             tmf.precompute_ref_context(tctx, method, tst)
