@@ -16,7 +16,8 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    over +-1 s, 3610 strikes x 4 = 14,440 rows per call), capture the fused
    kernel's operands from one call of each, and hold the kernel against its
    plain PyTorch version on them (l1 and l2, k_share 3 and 1) at 1e-5 of
-   the max, with both timed by CUDA events;
+   the max, with both timed by CUDA events beside the bound from this
+   run's spans (the live share and the union of live samples logged);
 4. finite batches: the same receivers with a 195-centroid bilateral fault,
    256 strikes per global_misfits_for_source_batch call; capture the window
    kernel's and the scan kernel's operands from one call and hold each
@@ -47,9 +48,9 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    finite configuration and the first 8 radii on a CPU Engine and require
    1e-5 relative agreement with the card (global misfits; for the finite
    batches also misfits and norms);
-8. trace 5 eikonal calls with torch.profiler: the device time by kernel,
-   the device's busy time, the host syncs, and the host-side batch
-   preparation alone.
+8. trace 5 calls of each point sweep and 5 eikonal calls with
+   torch.profiler: the device time by kernel, the device's busy time, the
+   host syncs, and for eikonal the host-side batch preparation alone.
 
 Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
@@ -258,7 +259,10 @@ def record_err(results, name, got, want, label):
 
 def check_kernel(name, args, kw, results):
     """Kernel vs plain on the captured operands, for l1 and l2 and with the
-    values rows shared (k_share 3) and per row (k_share 1)."""
+    values rows shared (k_share 3) and per row (k_share 1), timed beside its
+    bound from this run's spans."""
+    import torch
+
     from kiwi_tpu_torch.ops import float_scan as fs
 
     ref, v, wgt = args
@@ -280,12 +284,25 @@ def check_kernel(name, args, kw, results):
     kk = dict(kw, k_share=k)
     rec["ms"] = cuda_ms(lambda: fs.fused_scan_sums(ref, vv, wgt, **kk), 20)
     rec["plain_ms"] = cuda_ms(lambda: fs.fused_scan_sums_reference(ref, vv, wgt, **kk), 3)
-    # synthesis: 2 T flop per (rc, b, w); scan: 3 per (rc, s, b, w)
+    # FP32 lane instructions per model: an FFMA per (t, w) of the synthesis
+    # over the samples some shift reads, and a subtraction and an add (|d|
+    # as an operand modifier; d^2 as one FFMA) per live (s, w) of the scan.
+    # The FP32 peak counts an FMA as 2 flop, so an instruction is 2 flop.
     RC, S, W = ref.shape
     T, B = vv.shape[1], wgt.shape[2]
     spans = [kw[k] for k in ("lo", "hi") if k in kw]
+    if spans:
+        j = kw.get("basei", 0) + torch.arange(W, device=ref.device)
+        live = (j >= kw["lo"].T[..., None]) & (j <= kw["hi"].T[..., None])  # [RC, S, W]
+        union = live.any(1).sum(1)  # [RC]
+        synth, scan = T * int(union.sum()), 2 * int(live.sum())
+        log(f"  {name}: live (s, w) share {float(live.float().mean()):.4f}, union of the live "
+            f"samples per rc {float(union.float().mean()):.2f} of {W} "
+            f"({int(union.min())}-{int(union.max())})")
+    else:
+        synth, scan = RC * T * W, 2 * RC * S * W
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(ref, vv, wgt, *spans) + 4 * RC * S * B,
-                                             2 * RC * B * W * T + 3 * RC * S * B * W)
+                                             2 * B * (synth + scan))
     rec["library_ms"] = None  # no one PyTorch call synthesizes and scans
     log(f"  {name}: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
@@ -630,19 +647,20 @@ def run_eikonal(eng, batches):
     return mps
 
 
-def profile_eikonal(eng, radii, reps=5):
-    """torch.profiler over `reps` eikonal calls after a warm one: device
-    time per call by kernel, launches, and the union of device intervals."""
+def profile_calls(label, call, reps=5):
+    """torch.profiler over `reps` calls after a warm one: device time per
+    call by kernel, launches, host syncs and the union of device intervals."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pb = eik_rows(radii)
-    eng.global_misfits_for_source_batch(pb)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
-            eng.global_misfits_for_source_batch(pb)
+            call()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = prof.events()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -655,20 +673,27 @@ def profile_eikonal(eng, radii, reps=5):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
+    log(f"phase profile {label}: per call {len(dev) / reps:.1f} device ops, device busy "
+        f"{busy / reps / 1e3:.4f} ms (union of intervals) of {wall / reps * 1e3:.4f} ms wall "
+        f"(profiled), sum of device time {sum(t for _, t in by_name.values()) / reps / 1e3:.4f} "
+        f"ms, {syncs / reps:.1f} cudaStreamSynchronize")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"  {t / reps / 1e3:9.4f} ms  {n / reps:6.1f}x  {name[:110]}")
+
+
+def profile_eikonal(eng, radii, reps=5):
+    """profile_calls over eikonal calls, then the host-side batch
+    preparation alone."""
     from kiwi_tpu_torch.sources import eikonal as eiksrc
 
+    pb = eik_rows(radii)
+    profile_calls("eikonal", lambda: eng.global_misfits_for_source_batch(pb), reps)
     t0 = time.perf_counter()
-    for _ in range(reps):  # the host-side batch preparation alone
+    for _ in range(reps):
         eiksrc.prepare_batch(eiksrc.named_params_batch("eikonal", pb), eng.effective_dt,
                              eng.eikonal_context())
     log(f"phase profile eikonal: host prepare_batch {(time.perf_counter() - t0) / reps * 1e3:.3f}"
         f" ms per call")
-    log(f"phase profile eikonal: per call {len(dev) / reps:.1f} device ops, device busy "
-        f"{busy / reps / 1e3:.4f} ms (union of intervals), sum of device time "
-        f"{sum(t for _, t in by_name.values()) / reps / 1e3:.4f} ms, "
-        f"{syncs / reps:.1f} cudaStreamSynchronize")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        log(f"  {t / reps / 1e3:9.4f} ms  {n / reps:6.1f}x  {name[:110]}")
 
 
 def compare_finite(eng, cpu, strikes, label):
@@ -782,6 +807,8 @@ def main():
     log(f"phase card-vs-cpu eikonal: 8 radii, max diff {rel:.3e} of the largest |g|")
     if not (rel <= TOL and cpu.eikonal_device and eik.eikonal_device):
         fail(f"eikonal: card and CPU port disagree ({rel:.3e} > {TOL}) or fell back to the host")
+    for label, eng in engines.items():
+        profile_calls(f"point {label}", lambda: eng.sweep_global_misfits(BASE, 5, packed))
     profile_eikonal(eik, radii)
 
     smi = subprocess.run(

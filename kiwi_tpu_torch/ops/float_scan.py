@@ -12,12 +12,18 @@ both, so the [B, RC, W] synthetic block never exists in device memory.
 
 It replaces the TPU kernels kiwi_tpu/ops/float_scan.py:_fused_kernel and
 _fused_kernel_masked.  Their lane-broadcast operand tiles existed only for
-the TPU's (8, 128) layout; here the operands are compact and the mask is
-built in-kernel from lo/hi.  What bounds it on an H100 is float32 ALU issue
-(~9 kflop per (model, rc) against 4*T bytes of weights); its design
-answers with one model per thread, weights and running sums in registers,
-and 16-byte shared-memory broadcasts that each feed four FMAs.  See the
-source's header.
+the TPU's (8, 128) layout; here the operands are compact and the kernel
+turns lo/hi into per-shift window ranges itself.  What bounds it on an H100
+is float32 instruction issue: T FFMAs per sample of the synthesis and two
+adds per live (shift, sample) of the scan, 5,184 per (model, rc) at the
+point sweep's shapes, against 4*T bytes of weights.  Its design: one or two
+models per thread, weights and running sums in registers, the window copied
+into shared memory once, 16-byte shared-memory broadcasts that each feed
+four FMAs or eight adds a model, shift buckets that fit the odd S of
+symmetric shift ranges, and on filtered plans only the samples some span
+reaches, with dead (shift, quad) pairs skipped.  A NaN or
+Inf outside every span therefore does not reach the kernel's output, where
+the plain version propagates it.  See the source's header.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  There is no fallback between them.
@@ -37,7 +43,7 @@ from . import build
 # _fused_kernel_masked, "scan_sums" _scan_kernel and _scan_kernel_blocked
 launches = {"fused_scan": 0, "fused_scan_masked": 0, "scan_sums": 0}
 
-MAX_T = 64  # the kernel's register bucket bound on the contraction depth
+MAX_T = 64  # the kernel's largest register array of weights
 
 
 @functools.lru_cache(maxsize=None)

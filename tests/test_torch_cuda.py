@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import span_cases
 from kiwi_tpu_torch.ops import eik_sweep, float_scan, synth_window
 
 pytestmark = pytest.mark.cuda
@@ -54,13 +55,77 @@ def _operands(rng, RC, S, T, W, B, k_share, dev, masked):
 def test_kernel_matches_plain(cuda_dev, masked, l2, RC, S, T, W, B, k_share):
     rng = np.random.default_rng(RC * 1000 + S * 10 + T)
     args, kw = _operands(rng, RC, S, T, W, B, k_share, cuda_dev, masked)
+    got = _check_fused(args, kw, l2)
+    assert got.shape == (RC, S, B)
+
+
+def _check_fused(args, kw, l2):
+    """One launch of the fused kernel against its plain version at 1e-5 of
+    the max; returns the kernel's output."""
+    masked = "lo" in kw
+    name = "fused_scan_masked" if masked else "fused_scan"
     before = dict(float_scan.launches)
     got = float_scan.fused_scan_sums(*args, l2=l2, **kw)
     torch.cuda.synchronize()
-    name = "fused_scan_masked" if masked else "fused_scan"
     assert float_scan.launches[name] == before[name] + 1
     want = float_scan.fused_scan_sums_reference(*args, l2=l2, **kw)
-    assert got.shape == (RC, S, B) and torch.isfinite(got).all()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= 1e-5, err
+    return got
+
+
+@pytest.mark.parametrize("spans", [None, *span_cases.KINDS])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("RC,S,T,W,B,k_share", [
+    (30, 21, 30, 72, 1000, 3),    # the point sweep's shapes (unfiltered: shared rows)
+    (30, 21, 30, 72, 1000, 1),    # the filtered point sweep's (rows per rc)
+    (4, 21, 30, 71, 200, 1),      # W not a multiple of 4
+    (4, 21, 30, 73, 200, 2),
+    (6, 1, 30, 72, 130, 3),       # one shift
+    (6, 33, 30, 72, 130, 3),      # shifts over two blocks of 17 and 16
+    (6, 21, 1, 72, 130, 1),       # one values row
+    (6, 21, 64, 72, 130, 1),      # T at its bound
+])
+def test_kernel_main_path_shapes(cuda_dev, spans, l2, RC, S, T, W, B, k_share):
+    """The sweep's own shapes and the edges of every size, unmasked and
+    under span tables (band: the filtered sweep's pattern; edges: hi < lo,
+    spans wholly outside the window, lo < basei, hi >= basei + W)."""
+    rng = np.random.default_rng(RC * 1000 + S * 10 + T + W)
+    args, kw = _operands(rng, RC, S, T, W, B, k_share, cuda_dev, False)
+    if spans:
+        basei = 37
+        lo, hi = span_cases.span_table(rng, S, RC, W, basei, spans)
+        kw.update(lo=torch.as_tensor(lo, device=cuda_dev), hi=torch.as_tensor(hi, device=cuda_dev),
+                  basei=basei)
+    got = _check_fused(args, kw, l2)
+    assert got.shape == (RC, S, B)
+
+
+@pytest.mark.parametrize("l2", [False, True])
+def test_masked_kernel_skips_dead_samples(cuda_dev, l2):
+    """The masked kernel reads no sample outside every span: NaN and Inf
+    there leave its output finite and equal to the plain version's on the
+    same data with those samples set to 0.  The plain version (and the JAX
+    package's kernel) multiplies them by 0 and returns NaN: a divergence
+    kept on purpose (ROADMAP.md §3)."""
+    RC, S, T, W, B, basei = 30, 21, 30, 72, 300, 37
+    rng = np.random.default_rng(5)
+    args, kw = _operands(rng, RC, S, T, W, B, 1, cuda_dev, False)
+    lo, hi = span_cases.span_table(rng, S, RC, W, basei, "band")
+    j = basei + np.arange(W)
+    live = (j >= lo.T[..., None]) & (j <= hi.T[..., None])  # [RC, S, W]
+    ref, v, wgt = (a.cpu().numpy() for a in args)
+    ref[~live] = np.nan  # dead for this shift
+    v[np.broadcast_to(~live.any(1)[:, None], v.shape)] = np.inf  # dead for every shift
+    kw.update(lo=torch.as_tensor(lo, device=cuda_dev), hi=torch.as_tensor(hi, device=cuda_dev),
+              basei=basei)
+    dirty = [torch.as_tensor(a, device=cuda_dev) for a in (ref, v, wgt)]
+    got = float_scan.fused_scan_sums(*dirty, l2=l2, **kw)
+    clean = [torch.nan_to_num(a, nan=0.0, posinf=0.0) for a in dirty]
+    want = float_scan.fused_scan_sums_reference(*clean, l2=l2, **kw)
+    assert torch.isfinite(got).all()
+    assert not torch.isfinite(float_scan.fused_scan_sums_reference(*dirty, l2=l2, **kw)).all()
     err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
     assert err <= 1e-5, err
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import span_cases
 from kiwi_tpu.ops import float_scan as jfs
 from kiwi_tpu_torch.ops import float_scan as tfs
 
@@ -59,6 +60,20 @@ def test_plain_matches_pallas_interpret(masked, l2, k_share):
                               torch.as_tensor(wgt), **kw)
     assert tfs.launches == before, "a CPU call must not count as a kernel launch"
     assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", span_cases.KINDS)
+@pytest.mark.parametrize("l2", [False, True])
+def test_plain_matches_pallas_interpret_on_span_tables(kind, l2):
+    """The span cases the card tests hold the kernel to (the filtered
+    sweep's band; empty spans, spans outside the window or crossing its
+    ends, single samples): the plain version against the Pallas kernel."""
+    ref, v, wgt, _, _, basei = _operands(30 + l2, RC=6, S=9, W=24)
+    lo, hi = span_cases.span_table(np.random.default_rng(40 + l2), 9, 6, 24, basei, kind)
+    want = _jax_sums(ref, v, wgt, lo, hi, basei, 1, l2, True)
+    got = tfs.fused_scan_sums(*(torch.as_tensor(a) for a in (ref, v, wgt)), lo=torch.as_tensor(lo),
+                              hi=torch.as_tensor(hi), basei=basei, l2=l2)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max())
 
 
