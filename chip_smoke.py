@@ -16,15 +16,20 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    over +-1 s, 3610 strikes x 4 = 14,440 rows per call), capture the fused
    kernel's operands from one call of each, and hold the kernel against its
    plain PyTorch version on them (l1 and l2, k_share 3 and 1) at 1e-5 of
-   the max, with both timed by CUDA events beside the bound from this
-   run's spans (the live share and the union of live samples logged);
+   the max, the kernel's device time (torch.profiler's durations over 20
+   calls; the wrapper calls' time by CUDA events beside it) and the plain
+   version's beside the bound from this run's spans (the live share and
+   the union of live samples logged);
 4. finite batches: the same receivers with a 195-centroid bilateral fault,
    256 strikes per global_misfits_for_source_batch call; capture the window
    kernel's and the scan kernel's operands from one call and hold each
-   kernel against its plain version (scan: l1 and l2), timed by CUDA
-   events, with the window kernel's launch plan, its share of empty
-   groups and its reckoned L2 reads; then the window kernel on seeded
-   long-window operands (ng 8 and 10, nt_ext ~600, G 1, 3 and 8);
+   kernel against its plain version (scan: l1 and l2, on the engine's own
+   strided views), timed on the device as in 3, with the window kernel's
+   launch plan, its share of empty groups and its reckoned L2 reads; the
+   scan's one call must run no device work but its kernel (no copy), and
+   its time is that of 20 launches of its C entry into one output; then
+   the window kernel on seeded long-window operands (ng 8 and 10, nt_ext
+   ~600, G 1, 3 and 8);
 5. eikonal: bench_eikonal's session (the same store and receivers, l2norm,
    no floating shift, constraints z in [50, 700] m, an eikonal rupture of
    radius 250 m as the synthetic reference through the host FMM path);
@@ -48,16 +53,18 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    finite configuration and the first 8 radii on a CPU Engine and require
    1e-5 relative agreement with the card (global misfits; for the finite
    batches also misfits and norms);
-8. trace 5 calls of each point sweep and 5 eikonal calls with
-   torch.profiler: the device time by kernel, the device's busy time, the
-   host syncs, and for eikonal the host-side batch preparation alone.
+8. trace 5 calls of each point sweep, 5 unfiltered finite batches and 5
+   eikonal calls with torch.profiler: the device time by kernel, the
+   device's busy time, the host syncs, and for eikonal the host-side batch
+   preparation alone.
 
 Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
 launches on the main paths, its error against its plain version, its
-time, the plain version's, one PyTorch call's where one computes the same
-function, and its roofline bound from this run's shapes and data; the
-window kernel's numbers are those of the finite batch), and last
+device time per launch, the plain version's time, one PyTorch call's
+where one computes the same function, and its roofline bound from this
+run's shapes and data; the window kernel's numbers are those of the
+finite batch), and last
 {"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
 device it exits nonzero and prints no result.
 """
@@ -105,6 +112,14 @@ SOURCES = {
     "window_synth": "kiwi_tpu_torch/csrc/synth_window.cu",
     "scan_sums": "kiwi_tpu_torch/csrc/scan_sums.cu",
     "eik_sweep": "kiwi_tpu_torch/csrc/eik_sweep.cu",
+}
+# the device kernels of each wrapper, as torch.profiler names them
+KERNELS = {
+    "fused_scan": ("fused_scan_kernel",),
+    "fused_scan_masked": ("fused_scan_kernel",),
+    "window_synth": ("window_direct_kernel", "window_tile_kernel"),
+    "scan_sums": ("scan_sums_kernel",),
+    "eik_sweep": ("eik_wavefront_kernel", "eik_diagonal_kernel"),
 }
 REPLACES = {
     "fused_scan": "kiwi_tpu/ops/float_scan.py:193",
@@ -182,6 +197,12 @@ def make_eikonal_engine(store, device):
     return eng
 
 
+def finite_rows(strikes):
+    pb = np.tile(FINITE_BASE, (strikes.size, 1))
+    pb[:, 5] = strikes
+    return pb
+
+
 def eik_rows(radii):
     pb = np.tile(EIK_BASE, (radii.size, 1))
     pb[:, 10] = radii
@@ -213,6 +234,34 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, names):
+    """Device time per launch of the kernels whose name contains one of
+    `names`, summed from torch.profiler's device durations over `reps`
+    calls of fn after a warm one (so host work around the launches does not
+    count), and the other device operations those calls ran, {name: count
+    per call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times, others = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if any(n in e.name for n in names):
+            times.append(e.time_range.elapsed_us())
+        else:
+            others[e.name] = others.get(e.name, 0.0) + 1.0 / reps
+    if not times:
+        fail(f"no device kernel named like {names} in the trace")
+    return sum(times) / len(times) / 1e3, others
 
 
 def capture(module, name, run):
@@ -279,10 +328,12 @@ def check_kernel(name, args, kw, results):
             rec = record_err(results, name, got, want,
                              f"RC={ref.shape[0]} S={ref.shape[1]} T={vv.shape[1]} "
                              f"W={ref.shape[2]} B={wgt.shape[2]} k_share={k} l2={l2}")
-    # time the main path's own call (first variant, l1)
+    # time the main path's own call (first variant, l1): the kernel's device
+    # time, and the wrapper's (host-bound at this speed) beside it
     vv, k = variants[0]
     kk = dict(kw, k_share=k)
-    rec["ms"] = cuda_ms(lambda: fs.fused_scan_sums(ref, vv, wgt, **kk), 20)
+    rec["ms"], _ = device_ms(lambda: fs.fused_scan_sums(ref, vv, wgt, **kk), 20, KERNELS[name])
+    wrapper_ms = cuda_ms(lambda: fs.fused_scan_sums(ref, vv, wgt, **kk), 20)
     rec["plain_ms"] = cuda_ms(lambda: fs.fused_scan_sums_reference(ref, vv, wgt, **kk), 3)
     # FP32 lane instructions per model: an FFMA per (t, w) of the synthesis
     # over the samples some shift reads, and a subtraction and an add (|d|
@@ -304,8 +355,9 @@ def check_kernel(name, args, kw, results):
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(ref, vv, wgt, *spans) + 4 * RC * S * B,
                                              2 * B * (synth + scan))
     rec["library_ms"] = None  # no one PyTorch call synthesizes and scans
-    log(f"  {name}: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    log(f"  {name}: kernel {rec['ms']:.4f} ms on the device (wrapper calls {wrapper_ms:.4f} ms), "
+        f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
 
 
 def window_reads(args):
@@ -369,7 +421,8 @@ def check_window(args, kw, label, results):
     got = sw.window_forward(*args, **kw)
     want = sw.window_forward_reference(*args, **kw)
     rec = record_err(results, "window_synth", got, want, f"{label} batch operands")
-    ms = cuda_ms(lambda: sw.window_forward(*args, **kw), 20)
+    ms, _ = device_ms(lambda: sw.window_forward(*args, **kw), 20, KERNELS["window_synth"])
+    wrapper_ms = cuda_ms(lambda: sw.window_forward(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: sw.window_forward_reference(*args, **kw), 3)
     # the work these operands need: per live (b, r, group) the 4-node blend
     # over the samples its shifts reach, 7 flop per (component, sample); per
@@ -379,7 +432,8 @@ def check_window(args, kw, label, results):
     bound_ms, bound_by = bound(io, 7 * ng * reads["live_spans"]
                                + reads["live_centroids"] * nt_out * (2 * ng + 18))
     full_ms, full_by = bound(io, B * R * P * (7 * ng * nt_ext + G * nt_out * (2 * ng + 18)))
-    log(f"  window_synth ({label}): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+    log(f"  window_synth ({label}): kernel {ms:.4f} ms on the device (wrapper calls "
+        f"{wrapper_ms:.4f} ms), plain torch {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}; every group over nt_ext: {full_ms:.4f} ms, "
         f"{full_by})")
     if "ms" not in rec:  # the JSON line carries the first (finite) batch's times
@@ -395,8 +449,7 @@ def check_finite_kernels(eng, strikes, results):
     from kiwi_tpu_torch import misfit as mf
     from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
 
-    pb = np.tile(FINITE_BASE, (strikes.size, 1))
-    pb[:, 5] = strikes
+    pb = finite_rows(strikes)
     scans = []
     windows = capture(sw, "window_forward", lambda: scans.extend(
         capture(mf, "scan_sums", lambda: eng.global_misfits_for_source_batch(pb))))
@@ -407,17 +460,40 @@ def check_finite_kernels(eng, strikes, results):
 
     (ref, syn), skw = scans[0]
     RC, Bs, W = syn.shape
-    log(f"  scan_sums shapes: S={ref.shape[0] // RC} RC={RC} W={W} B={Bs}")
+    S = ref.shape[0] // RC
+    log(f"  scan_sums shapes: S={S} RC={RC} W={W} B={Bs}; the engine's views: strides ref "
+        f"{ref.stride()}, syn {syn.stride()}, element offsets {ref.storage_offset()}, "
+        f"{syn.storage_offset()}")
     for l2 in (False, True):
         got = fs.scan_sums(ref, syn, l2=l2)
         want = fs.scan_sums_reference(ref, syn, l2=l2)
         rec = record_err(results, "scan_sums", got, want, f"finite batch operands, l2={l2}")
     l2 = skw.get("l2", False)  # time the main path's own call
-    rec["ms"] = cuda_ms(lambda: fs.scan_sums(ref, syn, l2=l2), 20)
+    # one call on the engine's views runs the scan kernel and nothing else (no copy)
+    _, others = device_ms(lambda: fs.scan_sums(ref, syn, l2=l2), 1, KERNELS["scan_sums"])
+    if others:
+        fail(f"scan_sums ran other device work beside its kernel: {others}")
+    # the kernel's own time: 20 back-to-back launches of the C entry into one
+    # output, by the profiler's device durations and by CUDA events; the
+    # wrapper's calls beside them
+    out = torch.empty((S, RC, Bs), dtype=torch.float32, device=ref.device)  # the kernel's layout
+    lib = fs._scan_library()
+    c_args = (ref.data_ptr(), syn.data_ptr(), out.data_ptr(), ref.stride(0), syn.stride(0),
+              syn.stride(1), S, RC, Bs, W, int(l2), torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = lib.kiwi_scan_sums(*c_args)
+        if err:
+            fail(f"kiwi_scan_sums launch failed: CUDA error {err}")
+
+    rec["ms"], _ = device_ms(launch, 20, KERNELS["scan_sums"])
+    events_ms = cuda_ms(launch, 20)
+    wrapper_ms = cuda_ms(lambda: fs.scan_sums(ref, syn, l2=l2), 20)
     rec["plain_ms"] = cuda_ms(lambda: fs.scan_sums_reference(ref, syn, l2=l2), 3)
-    S = ref.shape[0] // RC
+    # two FP32 lane instructions (2 flop each) per (s, b, rc, w): a
+    # subtraction and an add with |d| as an operand modifier, or an FFMA
     rec["bound_ms"], rec["bound_by"] = bound(nbytes(ref, syn) + 4 * S * Bs * RC,
-                                             3 * S * RC * Bs * W)
+                                             4 * S * RC * Bs * W)
     rec["library_ms"] = None
     if not l2:  # the l1 sums are one cdist: [RC, S, W] x [RC, B, W] -> [RC, S, B]
         def library():
@@ -428,8 +504,10 @@ def check_finite_kernels(eng, strikes, results):
         rec["library_ms"] = cuda_ms(library, 20)
         log(f"  scan_sums: torch.cdist(p=1) {rec['library_ms']:.4f} ms "
             f"(max rel diff to the kernel {lib_rel:.2e})")
-    log(f"  scan_sums: kernel {rec['ms']:.4f} ms, plain torch {rec['plain_ms']:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    log(f"  scan_sums: kernel {rec['ms']:.4f} ms on the device (20 launches of the C entry: "
+        f"{events_ms:.4f} ms each by CUDA events; 20 wrapper calls: {wrapper_ms:.4f} ms each), "
+        f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
 
 
 def check_long_windows(dev, results):
@@ -498,8 +576,11 @@ def check_eikonal_kernel(eng, radii, results):
     if ndiff:  # the kernel rounds as the plain version does, step for step
         fail(f"eik_sweep differs from its plain version in {ndiff} cells (it must equal it)")
     rec = results["eik_sweep"] = {"max_abs_err": float(err.max()), "max_rel_err": rel}
-    rec["ms"] = cuda_ms(lambda: es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds),
-                        20)
+    def solve():
+        return es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds)
+
+    rec["ms"], _ = device_ms(solve, 20, KERNELS["eik_sweep"])
+    wrapper_ms = cuda_ms(solve, 20)
     rec["plain_ms"] = cuda_ms(
         lambda: es.sweep_solve_batch_reference(speed, delta, first, ip, n_rounds=n_rounds), 1)
     # 26 flop per cell update (division and square root counted as one
@@ -521,7 +602,8 @@ def check_eikonal_kernel(eng, radii, results):
                                text=True, check=True).stdout.split()[0])
     floor_ms = waves * steps * EIK_CHAIN_CYCLES / (mhz * 1e3)
     log(f"  eik_sweep: kernel {rec['ms']:.4f} ms = {waves} waves x {steps} steps x "
-        f"{rec['ms'] / (waves * steps) * 1e3:.4f} us per step ({per_sm} blocks per SM), "
+        f"{rec['ms'] / (waves * steps) * 1e3:.4f} us per step ({per_sm} blocks per SM; wrapper "
+        f"calls {wrapper_ms:.4f} ms), "
         f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}); chain floor {floor_ms:.4f} ms ({waves} waves x {steps} steps x "
         f"{EIK_CHAIN_CYCLES} cycles at the {mhz:.0f} MHz maximum SM clock)")
@@ -595,15 +677,10 @@ def run_finite(eng, batches, label):
     ends in torch.cuda.synchronize()."""
     import torch
 
-    def rows(strikes):
-        pb = np.tile(FINITE_BASE, (strikes.size, 1))
-        pb[:, 5] = strikes
-        return pb
-
-    eng.global_misfits_for_source_batch(rows(batches[0]))  # plan + first call
+    eng.global_misfits_for_source_batch(finite_rows(batches[0]))  # plan + first call
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = [eng.global_misfits_for_source_batch(rows(s)) for s in batches]
+    out = [eng.global_misfits_for_source_batch(finite_rows(s)) for s in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     g = torch.cat(out).cpu().numpy()
@@ -697,8 +774,7 @@ def profile_eikonal(eng, radii, reps=5):
 
 
 def compare_finite(eng, cpu, strikes, label):
-    pb = np.tile(FINITE_BASE, (strikes.size, 1))
-    pb[:, 5] = strikes
+    pb = finite_rows(strikes)
     got = [x.cpu().numpy() for x in eng.misfits_for_source_batch(pb)]
     want = [x.numpy() for x in cpu.misfits_for_source_batch(pb)]
     g_gpu = eng.global_misfits_for_source_batch(pb).cpu().numpy()
@@ -809,6 +885,8 @@ def main():
         fail(f"eikonal: card and CPU port disagree ({rel:.3e} > {TOL}) or fell back to the host")
     for label, eng in engines.items():
         profile_calls(f"point {label}", lambda: eng.sweep_global_misfits(BASE, 5, packed))
+    pb = finite_rows(batches[0])
+    profile_calls("finite", lambda: finite["finite"].global_misfits_for_source_batch(pb))
     profile_eikonal(eik, radii)
 
     smi = subprocess.run(

@@ -153,7 +153,8 @@ def fused_scan_sums_reference(ref, v, wgt, lo=None, hi=None, basei=0, k_share=1,
 def _scan_library():
     lib = build.load("scan_sums.cu")
     fn = lib.kiwi_scan_sums
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -163,16 +164,25 @@ def scan_sums(ref, syn, l2=False):
 
     ref: f32[S*RC, W] processed + shifted references (row s*RC + rc).
     syn: f32[RC, B, W] processed synthetics (syn_factor and moment folded in).
+    Both may be strided views (the finite caller's slices of its [S, RC, PL]
+    and [B, RC, PL] probes): any strides, unit stride along W.
     Returns f32[S, B, RC]: out[s, b, rc] = sum_w u(ref[s*RC + rc, w] -
     syn[rc, b, w]), u = |d| or d^2 (l2).  B may be any size: there is no
     padding to a block.  The caller applies the tail correction, dt and the
     shift selection.
 
     Replaces the TPU kernels kiwi_tpu/ops/float_scan.py:_scan_kernel and
-    _scan_kernel_blocked (csrc/scan_sums.cu: one CUDA kernel, window staged
-    in chunks whatever W is).  FP32 ALU issue bounds it on an H100; its
-    design stages each block's synthetic tile once in shared memory for all
-    S shifts.  See the source's header.
+    _scan_kernel_blocked (csrc/scan_sums.cu: one CUDA kernel, which takes
+    the views' row strides, so nothing is copied).  At the finite path's
+    shapes its work and its bytes are each about a microsecond on an H100,
+    so latency bounds it.  Its design: a block of 8 warps per (32 models,
+    rc), lane l on model l, each warp a contiguous share of the window,
+    every shift's running sum in registers; a lane loads its synthetic
+    samples straight into registers, the warp stages its share of the
+    reference rows in shared memory with cp.async and reads each shift's
+    quad as a 16-byte broadcast feeding 8 FP32 instructions; the warps' sums
+    meet in shared memory.  The result is a [S, B, RC] view of the [S, RC, B]
+    buffer the kernel writes (whole sectors).  See the source's header.
     """
     for name, x in (("ref", ref), ("syn", syn)):
         if x.dtype != torch.float32:
@@ -181,6 +191,9 @@ def scan_sums(ref, syn, l2=False):
             or ref.shape[0] % max(syn.shape[0], 1):
         raise ValueError(f"shape mismatch: ref {tuple(ref.shape)} (want [S*RC, W]), "
                          f"syn {tuple(syn.shape)} (want [RC, B, W])")
+    for name, x in (("ref", ref), ("syn", syn)):
+        if x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride along W, got strides {x.stride()}")
     if ref.device != syn.device:
         raise ValueError("ref and syn must be on one device")
     RC, B, W = syn.shape
@@ -190,17 +203,16 @@ def scan_sums(ref, syn, l2=False):
         return scan_sums_reference(ref, syn, l2)
     if dev.type != "cuda":
         raise ValueError(f"scan_sums runs on cpu or cuda tensors, not {dev}")
-    ref, syn = ref.contiguous(), syn.contiguous()
-    out = torch.empty((S, B, RC), dtype=torch.float32, device=dev)
+    out = torch.empty((S, RC, B), dtype=torch.float32, device=dev)  # returned as [S, B, RC]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _scan_library().kiwi_scan_sums(
-            ref.data_ptr(), syn.data_ptr(), out.data_ptr(), S, RC, B, W, int(bool(l2)),
-            stream)
+            ref.data_ptr(), syn.data_ptr(), out.data_ptr(), ref.stride(0), syn.stride(0),
+            syn.stride(1), S, RC, B, W, int(bool(l2)), stream)
     if err != 0:
         raise RuntimeError(f"kiwi_scan_sums launch failed: CUDA error {err}")
     launches["scan_sums"] += 1
-    return out
+    return out.transpose(1, 2)
 
 
 def scan_sums_reference(ref, syn, l2=False, chunk_elems=1 << 24):

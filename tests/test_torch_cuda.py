@@ -215,24 +215,52 @@ def test_window_kernel_tiles_match_plain(cuda_dev, B, bt, layout):
     assert err <= 1e-5, err
 
 
+def _scan_operands(rng, S, RC, B, W, layout, dev, scale):
+    """ref [S*RC, W] and syn [RC, B, W]: contiguous, or the finite caller's
+    views of [S, RC, PL] and [B, RC, PL] probes, sliced at i0 (`any_offset`:
+    PL odd, rows at every offset from a 16-byte boundary, the kernel's
+    4-byte copies; `one_offset`: PL a multiple of 4 and i0 = 3, every row 3
+    samples past a boundary, as on the finite path: its 16-byte copies)."""
+    if layout == "contiguous":
+        PL, i0 = W, 0
+    elif layout == "any_offset":
+        PL, i0 = W + 13, 5
+    else:
+        PL, i0 = -(-W // 4) * 4 + 8, 3
+    ref_proc = rng.standard_normal((S, RC, PL)).astype(np.float32) * np.float32(scale)
+    syn_s = rng.standard_normal((B, RC, PL)).astype(np.float32) * np.float32(scale)
+    ref_proc, syn_s = (torch.as_tensor(a, device=dev) for a in (ref_proc, syn_s))
+    ref = ref_proc[..., i0:i0 + W].reshape(S * RC, W)
+    syn = syn_s[..., i0:i0 + W].transpose(0, 1)
+    if layout == "contiguous":
+        syn = syn.contiguous()
+    return ref, syn
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "any_offset", "one_offset"])
 @pytest.mark.parametrize("l2", [False, True])
-@pytest.mark.parametrize("S,RC,B,W", [
-    (21, 30, 256, 128),   # the finite benchmark's scan
-    (1, 6, 7, 50),        # one shift, ragged B, W not a multiple of 32
-    (5, 4, 33, 200),      # W over several staged chunks
-    (70, 3, 65, 130),     # S over two shift chunks
+@pytest.mark.parametrize("S,RC,B,W,scale", [
+    (21, 30, 256, 88, 1.0),     # the finite path's scan
+    (21, 30, 256, 128, 1.0),    # the finite benchmark's scan at a longer probe
+    (1, 6, 7, 50, 1.0),         # one shift, ragged B, W not a multiple of 4
+    (5, 4, 33, 200, 1.0),       # B over one 32-model block, W over 3 passes of 24 quads
+    (33, 4, 40, 96, 1.0),       # S over one shift tile: two tiles of 17 and 16
+    (70, 3, 65, 130, 1.0),      # S over two shift tiles: three of 24, 24, 22
+    (5, 4, 33, 1000, 1.0),      # a long window: 11 passes
+    (33, 3, 40, 601, 1.0),      # 7 passes with two shift tiles, W odd
+    (21, 30, 256, 88, 1e-19),   # moment-1.0 amplitudes: squares near and below FLT_MIN
 ])
-def test_scan_kernel_matches_plain(cuda_dev, l2, S, RC, B, W):
-    rng = np.random.default_rng(S * 100 + RC)
-    ref = torch.as_tensor(rng.standard_normal((S * RC, W)).astype(np.float32), device=cuda_dev)
-    syn = torch.as_tensor(rng.standard_normal((RC, B, W)).astype(np.float32), device=cuda_dev)
+def test_scan_kernel_matches_plain(cuda_dev, l2, S, RC, B, W, scale, layout):
+    rng = np.random.default_rng(S * 100 + RC + W)
+    ref, syn = _scan_operands(rng, S, RC, B, W, layout, cuda_dev, scale)
     before = float_scan.launches["scan_sums"]
     got = float_scan.scan_sums(ref, syn, l2=l2)
     torch.cuda.synchronize()
     assert float_scan.launches["scan_sums"] == before + 1
     want = float_scan.scan_sums_reference(ref, syn, l2=l2)
     assert got.shape == (S, B, RC) and torch.isfinite(got).all()
-    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert want.abs().max().item() > 0.0
+    err = (got - want).abs().max().item() / want.abs().max().item()
     assert err <= 1e-5, err
 
 

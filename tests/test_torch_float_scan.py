@@ -129,3 +129,55 @@ def test_scan_sums_matches_pallas_interpret(l2):
     torch.testing.assert_close(chunked, got, rtol=0, atol=0)
     with pytest.raises(ValueError, match="shape mismatch"):
         tfs.scan_sums(torch.as_tensor(ref[:-1]), torch.as_tensor(syn))
+
+
+def _strided_views(rng, S, RC, B, W, PL, i0):
+    """The finite caller's operands: window slices [..., i0:i0 + W] of the
+    [S, RC, PL] reference stack and the [B, RC, PL] synthetics, as
+    misfit.evaluate_misfits_floating_batch passes them (views, no copy)."""
+    ref_proc = torch.as_tensor(rng.standard_normal((S, RC, PL)).astype(np.float32))
+    syn_s = torch.as_tensor(rng.standard_normal((B, RC, PL)).astype(np.float32))
+    ref = ref_proc[..., i0:i0 + W].reshape(S * RC, W)
+    syn = syn_s[..., i0:i0 + W].transpose(0, 1)
+    return ref, syn
+
+
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("S,RC,B,W,PL,i0", [
+    (5, 6, 50, 88, 101, 7),   # the finite path's W, odd i0, PL not a multiple of 4
+    (21, 3, 33, 24, 35, 3),   # the finite path's S, B over one 32-model block
+])
+def test_scan_sums_takes_strided_views(l2, S, RC, B, W, PL, i0):
+    """scan_sums on the finite caller's strided views (rows that start at
+    odd offsets, no unit row stride) against the JAX package's scan_sums in
+    interpret mode on contiguous copies, the batch padded to whole 32-model
+    blocks as that kernel takes it."""
+    import jax.numpy as jnp
+
+    ref, syn = _strided_views(np.random.default_rng(60 + l2 + S), S, RC, B, W, PL, i0)
+    assert ref.stride() == (PL, 1) and syn.stride() == (PL, RC * PL, 1)
+    assert ref.storage_offset() % 2 == 1 and not syn.is_contiguous()
+    syn_np = syn.contiguous().numpy()
+    pad = -B % 32
+    syn_pad = np.concatenate([syn_np, np.repeat(syn_np[:, -1:], pad, axis=1)], axis=1)
+    want = np.asarray(jfs.scan_sums(jnp.asarray(ref.contiguous().numpy()), jnp.asarray(syn_pad),
+                                    l2=l2, interpret=True))[:, :B]
+    before = dict(tfs.launches)
+    got = tfs.scan_sums(ref, syn, l2=l2)
+    assert tfs.launches == before, "a CPU call must not count as a kernel launch"
+    assert got.dtype == torch.float32 and got.shape == (S, B, RC)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("operand", ["ref", "syn"])
+def test_scan_sums_rejects_strided_window_axis(operand):
+    """The kernel reads each row's W samples at unit stride: a view whose
+    last axis is strided raises ValueError on every device."""
+    ref, syn = _strided_views(np.random.default_rng(3), 2, 3, 4, 8, 20, 1)
+    if operand == "ref":
+        ref = torch.as_tensor(np.zeros((6, 16), np.float32))[:, ::2]
+    else:
+        syn = syn.contiguous().transpose(1, 2).contiguous().transpose(1, 2)
+    assert ref.shape == (6, 8) and syn.shape == (3, 4, 8)
+    with pytest.raises(ValueError, match="unit stride along W"):
+        tfs.scan_sums(ref, syn)
