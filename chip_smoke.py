@@ -5,7 +5,8 @@ Drives kiwi_tpu_torch's main paths at full size on the card -- the
 kiwibench point sweep (bench.py's bench_point / bench_point_filtered
 configuration), the finite-source batches (bench.py's bench_finite, and
 the same with a band-pass) and the eikonal-rupture grid search (bench.py's
-bench_eikonal) -- and fails on the first phase that goes wrong:
+bench_eikonal), then a grid search and a Levenberg-Marquardt inversion on
+the finite session -- and fails on the first phase that goes wrong:
 
 1. build the CUDA kernels from kiwi_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc process per source, all started together;
@@ -49,14 +50,31 @@ bench_eikonal) -- and fails on the first phase that goes wrong:
    strike (91 +- 1 for the sweeps, +- 1.5 for the finite batches) or
    radius (250 +- 10 m), each path's kernels launched, and the eikonal
    device discretizer still in use (no fallback to the host pipeline);
+   then the inversions on the finite session, counted the same way: a
+   grid search (kiwi_tpu_torch.invert.MisfitGrid over 72 strikes x 7 dips
+   x 9 slip-rakes = 4,536 models, floating_l1norm over +-1 s, 200 bootstrap
+   iterations; the best source must be the true (91, 87, 164) and each
+   parameter's 16-84% band must hold it; models/s) and a
+   Levenberg-Marquardt refinement under l2norm (Engine.minimize_lm with
+   time, strike, dip and slip-rake free, from (+0.05 s, +5, -4, +6 degrees)
+   off the truth; strike, dip and slip-rake within 0.5 degrees of it and a
+   global misfit under 0.02; nfev/s and the plans the engine built); the
+   window and scan kernels then held against their plain versions, as in
+   4, on the operands these runs gave them: the grid's last full chunk
+   (512 models) and its ragged last one (440), LM's last Jacobian call (4
+   rows, the source-tile instance) and its closing get_global_misfit (one
+   row, the direct instance);
 7. run the first 16 strikes of each sweep, the first 32 models of each
-   finite configuration and the first 8 radii on a CPU Engine and require
-   1e-5 relative agreement with the card (global misfits; for the finite
-   batches also misfits and norms);
-8. trace 5 calls of each point sweep, 5 unfiltered finite batches and 5
-   eikonal calls with torch.profiler: the device time by kernel, the
-   device's busy time, the host syncs, and for eikonal the host-side batch
-   preparation alone.
+   finite configuration, the first and last 32 of the grid, the LM start
+   and end, and the first 8 radii on a CPU Engine and require 1e-5
+   relative agreement with the card (global misfits; for the finite
+   batches, the grid and LM also misfits and norms; at LM's end, where the
+   misfits are near 0, their difference within OPT_TOL of the largest
+   norm);
+8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
+   eikonal calls, 2 grid computes and 2 LM runs from the start with
+   torch.profiler: the device time by kernel, the device's busy time, the
+   host syncs, and for eikonal the host-side batch preparation alone.
 
 Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
@@ -96,6 +114,9 @@ EIK_BASE = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 30.0, 80.0, 164.0, 0.0, 0.0, 25
                      -50.0, 0.9, 0.3], dtype=np.float32)
 EIK_B = 384  # radii per batch (bench.py:476)
 TOL = 1e-5  # the repo's on-card relative bar (bench.py:194)
+# card vs CPU at LM's optimum: misfit diff over the largest norm (6.4e-8
+# and 1.5e-7 measured on an H100, PERF.md)
+OPT_TOL = 1e-6
 EIK_TOL = 1e-4  # kernel vs plain arrival times (tests/test_eikonal.py:208-209)
 # SM cycles of the dependent instructions of one step of the eikonal sweep
 # kernel: the shuffle, the ~18 float operations and the reciprocal square
@@ -106,6 +127,14 @@ EIK_CHAIN_CYCLES = 145
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BAND = ([0.0, 0.2, 3.0, 4.0], [0.0, 1.0, 1.0, 0.0])
+# the grid search over the finite fault: 72 strikes x 7 dips x 9 slip-rakes
+# = 4,536 models holding the true (91, 87, 164), bootstrap over receivers
+GRID = (("strike", np.arange(1.0, 360.0, 5.0)), ("dip", np.arange(57.0, 90.0, 5.0)),
+        ("slip-rake", np.arange(124.0, 205.0, 10.0)))
+BOOTSTRAP = 200
+# Levenberg-Marquardt from (+0.05 s, +5, -4, +6 degrees) off the truth
+LM_FREE = (0, 5, 6, 7)  # time, strike, dip, slip-rake
+LM_OFFSET = np.array([0.05, 5.0, -4.0, 6.0], np.float32)
 SOURCES = {
     "fused_scan": "kiwi_tpu_torch/csrc/float_scan.cu",
     "fused_scan_masked": "kiwi_tpu_torch/csrc/float_scan.cu",
@@ -197,6 +226,16 @@ def make_eikonal_engine(store, device):
     return eng
 
 
+def make_lm_engine(store, device):
+    """The finite session under l2norm with no floating shift, its own
+    synthetic as the reference (tests/test_invert.py:92-108's setup)."""
+    eng = make_session(store, device)
+    eng.set_misfit_method("l2norm")
+    eng.set_source_params("bilateral", FINITE_BASE)
+    eng.set_synthetic_reference()
+    return eng
+
+
 def finite_rows(strikes):
     pb = np.tile(FINITE_BASE, (strikes.size, 1))
     pb[:, 5] = strikes
@@ -264,15 +303,17 @@ def device_ms(fn, reps, names):
     return sum(times) / len(times) / 1e3, others
 
 
-def capture(module, name, run):
-    """The operands of every call of module.<name> made by run()."""
+def capture(module, name, run, key=None):
+    """The operands of every call of module.<name> made by run(); with
+    key(args), of the last call for each key only, in the order the keys
+    first came (the other calls' operands are let go as the run goes on)."""
     import torch
 
-    seen = []
+    seen = {}
     real = getattr(module, name)
 
     def recorder(*args, **kw):
-        seen.append((args, kw))
+        seen[len(seen) if key is None else key(args)] = (args, kw)
         return real(*args, **kw)
 
     setattr(module, name, recorder)
@@ -281,7 +322,17 @@ def capture(module, name, run):
     finally:
         setattr(module, name, real)
     torch.cuda.synchronize()
-    return seen
+    return list(seen.values())
+
+
+def window_batch(args):
+    """The batch size of a window_forward call: node_rows [B, R, P]."""
+    return int(args[1].shape[0])
+
+
+def scan_batch(args):
+    """The batch size of a scan_sums call: syn [RC, B, W]."""
+    return int(args[1].shape[1])
 
 
 def capture_operands(eng, strikes):
@@ -464,10 +515,7 @@ def check_finite_kernels(eng, strikes, results):
     log(f"  scan_sums shapes: S={S} RC={RC} W={W} B={Bs}; the engine's views: strides ref "
         f"{ref.stride()}, syn {syn.stride()}, element offsets {ref.storage_offset()}, "
         f"{syn.storage_offset()}")
-    for l2 in (False, True):
-        got = fs.scan_sums(ref, syn, l2=l2)
-        want = fs.scan_sums_reference(ref, syn, l2=l2)
-        rec = record_err(results, "scan_sums", got, want, f"finite batch operands, l2={l2}")
+    rec = check_scan(ref, syn, "finite", results)
     l2 = skw.get("l2", False)  # time the main path's own call
     # one call on the engine's views runs the scan kernel and nothing else (no copy)
     _, others = device_ms(lambda: fs.scan_sums(ref, syn, l2=l2), 1, KERNELS["scan_sums"])
@@ -508,6 +556,30 @@ def check_finite_kernels(eng, strikes, results):
         f"{events_ms:.4f} ms each by CUDA events; 20 wrapper calls: {wrapper_ms:.4f} ms each), "
         f"plain torch {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']})")
+
+
+def check_scan(ref, syn, label, results):
+    """scan_sums against its plain version on one call's captured operands
+    (the engine's strided views), l1 and l2."""
+    from kiwi_tpu_torch.ops import float_scan as fs
+
+    RC, B, W = syn.shape
+    for l2 in (False, True):
+        got = fs.scan_sums(ref, syn, l2=l2)
+        want = fs.scan_sums_reference(ref, syn, l2=l2)
+        rec = record_err(results, "scan_sums", got, want,
+                         f"{label} operands S={ref.shape[0] // RC} RC={RC} W={W} B={B}, l2={l2}")
+    return rec
+
+
+def check_captured(label, windows, scans, results):
+    """The window and scan kernels against their plain versions on the
+    operands captured from an inversion's own calls (the last call of each
+    batch size), timed as check_window times them."""
+    for args, kw in windows:
+        check_window(args, kw, f"{label} B={window_batch(args)}", results)
+    for (ref, syn), _kw in scans:
+        check_scan(ref, syn, label, results)
 
 
 def check_long_windows(dev, results):
@@ -724,6 +796,106 @@ def run_eikonal(eng, batches):
     return mps
 
 
+def run_grid(eng, out):
+    """MisfitGrid over GRID on the finite session (floating_l1norm over
+    +-1 s, unfiltered), then postprocess with BOOTSTRAP iterations; the best
+    source must be the true one and every searched parameter's 16-84%
+    bootstrap band must hold its true value.  out["grid"]: the grid;
+    out["grid_ops"]: the window and scan operands of its last full chunk
+    and of its ragged last one."""
+    import torch
+
+    from kiwi_tpu_torch import misfit as mf
+    from kiwi_tpu_torch.invert import MisfitGrid, Source
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    grid = MisfitGrid(Source("bilateral", FINITE_BASE), GRID)
+    scans = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    windows = capture(sw, "window_forward", lambda: scans.extend(capture(
+        mf, "scan_sums", lambda: grid.compute(eng), scan_batch)), window_batch)
+    seconds = time.perf_counter() - t0  # compute ends in the results' copy to the host
+    out["grid_ops"] = (windows, scans)
+    t0 = time.perf_counter()
+    best, g, stats = grid.postprocess(bootstrap_iterations=BOOTSTRAP, outer_norm="l2norm")
+    boot_s = time.perf_counter() - t0
+    out["grid"] = grid
+    if g.shape != (grid.nsources,) or not np.isfinite(grid.misfits_by_src).all():
+        fail(f"grid: misfits not finite [{grid.nsources}, R, C]")
+    mps = grid.nsources / seconds
+    found = {name: best[name] for name, _ in GRID}
+    log(f"phase grid: {grid.nsources} models in {seconds:.4f} s: {mps:.0f} models/s; "
+        f"bootstrap x{BOOTSTRAP} {boot_s:.4f} s; best {found}, global misfit "
+        f"{float(np.nanmin(g)):.3e}")
+    for name, _ in GRID:
+        st = stats[name]
+        true = float(FINITE_BASE[best.model.param_index(name)])
+        log(f"  grid {name}: best {st.best}, median {st.median}, 16-84% "
+            f"[{st.percentile16}, {st.percentile84}] (true {true})")
+        if st.best != true:
+            fail(f"grid: best {name} {st.best} is not the true {true}")
+        if not st.percentile16 <= true <= st.percentile84:
+            fail(f"grid: the 16-84% band of {name} misses the true {true}")
+    return mps
+
+
+def run_lm(eng, start, out):
+    """minimize_lm from `start` with time, strike, dip and slip-rake free;
+    strike, dip and slip-rake must end within 0.5 degrees of the truth and
+    the global misfit under 0.02.  out["lm"]: the final parameters;
+    out["lm_ops"]: the window operands of its last Jacobian call (4 rows)
+    and of its last one-row call (the get_global_misfit that ends it)."""
+    import torch
+
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    mask = np.zeros(FINITE_BASE.size, bool)
+    mask[list(LM_FREE)] = True
+    eng.set_source_params("bilateral", start)
+    eng.set_source_params_mask(mask)
+    plans = eng.plan_builds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = []
+    windows = capture(sw, "window_forward", lambda: res.extend(eng.minimize_lm()), window_batch)
+    seconds = time.perf_counter() - t0
+    info, nfev, gm = res
+    plans = eng.plan_builds - plans
+    out["lm_ops"] = (windows, [])
+    p = eng.source_params.copy()
+    out["lm"] = p
+    log(f"phase lm: info {info}, nfev {nfev} in {seconds:.4f} s: {nfev / seconds:.1f} nfev/s; "
+        f"plans built {plans}; global misfit {gm:.4e}; time {p[0]:.5f} s, strike {p[5]:.4f}, "
+        f"dip {p[6]:.4f}, slip-rake {p[7]:.4f} (true 0, 91, 87, 164)")
+    if not np.isfinite(gm) or gm >= 0.02:
+        fail(f"lm: global misfit {gm} not below 0.02")
+    off = np.abs(p[[5, 6, 7]] - FINITE_BASE[[5, 6, 7]])
+    if not (off < 0.5).all():
+        fail(f"lm: strike, dip, slip-rake off the truth by {off} (bar 0.5 degrees)")
+    return nfev / seconds
+
+
+def compare_misfits(label, got, want, optimum=False):
+    """Card vs CPU (misfits, norms[, shifts]) host arrays: the max abs diff
+    of each over its own largest |value|, at TOL.  optimum: the misfits'
+    diff over the largest norm instead, at OPT_TOL (at the optimum the
+    misfits are differences of nearly equal traces, and their f32 rounding
+    is set by the traces, whose size the norms give)."""
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(got[:2], want[:2])]
+    scales = [float(np.abs(b).max()) for b in want[:2]]
+    bars = (OPT_TOL, TOL) if optimum else (TOL, TOL)
+    rels = [d / max(s, 1e-30) for d, s in zip(diffs, (scales[1], scales[1]) if optimum
+                                                else scales)]
+    shifts = len(got) < 3 or bool((got[2] == want[2]).all())
+    log(f"phase card-vs-cpu {label}: max abs diff misfits {diffs[0]:.3e} (largest |m| "
+        f"{scales[0]:.3e}), {rels[0]:.3e} of the largest "
+        f"{'norm' if optimum else '|m|'} (bar {bars[0]:g}); norms {rels[1]:.3e} (bar {TOL:g}); "
+        f"floating shifts equal: {shifts}")
+    if not (rels[0] <= bars[0] and rels[1] <= bars[1] and shifts):
+        fail(f"{label}: card and CPU port disagree: {rels} > {bars} or shifts differ")
+
+
 def profile_calls(label, call, reps=5):
     """torch.profiler over `reps` calls after a warm one: device time per
     call by kernel, launches, host syncs and the union of device intervals."""
@@ -848,6 +1020,12 @@ def main():
     log(f"phase kernel-vs-plain eik_sweep ({EIK_B}-radius batch operands):")
     check_eikonal_kernel(eik, radii, results)
 
+    inv = {}  # the grid and LM phases' results
+    lm = make_lm_engine(store, dev)
+    lm_start = FINITE_BASE.copy()
+    lm_start[list(LM_FREE)] += LM_OFFSET
+    lm.set_source_params("bilateral", lm_start)
+    lm_first = lm.get_misfits()  # the start, for the card-vs-CPU phase
     mps, counts = {}, {}
     paths = (
         ("unfiltered", ("fused_scan",),
@@ -859,10 +1037,15 @@ def main():
         ("finite_filtered", ("window_synth",),
          lambda: run_finite(finite["finite_filtered"], batches[:4], "filtered")),
         ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
+        ("grid", ("window_synth", "scan_sums"), lambda: run_grid(finite["finite"], inv)),
+        ("lm", ("window_synth",), lambda: run_lm(lm, lm_start, inv)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
     launches = {name: sum(c[name] for c in counts.values()) for name in REPLACES}
+    for label in ("grid", "lm"):
+        log(f"phase kernel-vs-plain window_synth, scan_sums ({label} call operands):")
+        check_captured(label, *inv[f"{label}_ops"], results)
 
     for label, eng in engines.items():
         cpu = make_engine(store, "cpu", filtered=label == "filtered")
@@ -875,6 +1058,19 @@ def main():
     for label, eng in finite.items():
         cpu = make_engine(store, "cpu", filtered=label == "finite_filtered", base=FINITE_BASE)
         compare_finite(eng, cpu, batches[0][:32], label)
+        if label == "finite":  # the grid's first and last 32 models, as the grid holds them
+            grid = inv["grid"]
+            for name, sel in (("first", slice(0, 32)), ("last", slice(-32, None))):
+                m, n, _fs = (x.numpy() for x in cpu.misfits_for_source_batch(grid.params[sel]))
+                shape = grid.misfits_by_src[sel].shape
+                compare_misfits(f"grid ({name} 32 models)",
+                                (grid.misfits_by_src[sel], grid.norms_by_src[sel]),
+                                (m.reshape(shape), n.reshape(shape)))
+    cpu = make_lm_engine(store, "cpu")
+    lm.set_source_params("bilateral", inv["lm"])
+    for label, p, got in (("lm start", lm_start, lm_first), ("lm end", inv["lm"], lm.get_misfits())):
+        cpu.set_source_params("bilateral", p)
+        compare_misfits(label, got, cpu.get_misfits(), optimum=label == "lm end")
     cpu = make_eikonal_engine(store, "cpu")
     pb = eik_rows(radii[:8])
     g_cpu = cpu.global_misfits_for_source_batch(pb).numpy()
@@ -888,11 +1084,19 @@ def main():
     pb = finite_rows(batches[0])
     profile_calls("finite", lambda: finite["finite"].global_misfits_for_source_batch(pb))
     profile_eikonal(eik, radii)
+    grid = inv["grid"]
+    profile_calls("grid", lambda: grid.compute(finite["finite"]), reps=2)
+
+    def lm_run():
+        lm.set_source_params("bilateral", lm_start)
+        lm.minimize_lm()
+
+    profile_calls("lm", lm_run, reps=2)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log("models/s " + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()))
+    log("models/s (lm: rows evaluated per second) " + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,5 +1,7 @@
 """Session engine: source + GF store + receivers -> seismograms -> misfits
-(port of the batch-evaluation surface of kiwi_tpu/engine.py).
+(port of the batch-evaluation and read-back surface of kiwi_tpu/engine.py,
+with the parameter masks and Levenberg-Marquardt entry point that
+kiwi_tpu_torch.invert builds on).
 
 One object holds the configured database, receiver set, source and misfit
 setup.  Configuration changes invalidate a "plan" (static window/probe
@@ -137,6 +139,17 @@ class Engine:
         # overflow counter, read once its copy has landed (no sync)
         self._eik_calib = {}
         self._eik_pending = []  # (calibration key, overflow max, event or None)
+        # optional floor on the pow2 probe length.  Spectral-filter weights
+        # are evaluated at k/(pl*dt), so filter parity with another
+        # implementation (the C++ oracle) needs a common probe grid.  It is
+        # read when a plan is made: set it before the first query (or
+        # invalidate the plan after changing it)
+        self.min_probe_length = 0
+        self.plan_builds = 0  # plans made so far (each stages a GF window)
+        # masked subparameters (minimizer_engine.f90:525-610)
+        self.params_mask = None
+        self.subparam_mins = None
+        self.subparam_maxs = None
 
     # -- configuration (each invalidates the plan as needed) -----------------
 
@@ -333,7 +346,7 @@ class Engine:
             lo = min(lo, itmin + s1)
             hi = max(hi, itmin + len(values) - 1 + s2)
             maxreflen = max(maxreflen, len(values))
-        minlength = 2 * max(cfg.nt_out, maxreflen)
+        minlength = max(2 * max(cfg.nt_out, maxreflen), self.min_probe_length)
         ps0, ps1 = mf.allowed_span((lo, hi), minlength)
         st = mf.ProbeStatic(ps0=ps0, pl=ps1 - ps0 + 1, dt=store.dt)
 
@@ -530,6 +543,7 @@ class Engine:
 
         return {
             "cfg": cfg,
+            "st": st,
             "rctx": rctx,
             "use_fused_scan": use_fused_scan,
             "forward_shared_fused": forward_shared_fused,
@@ -758,6 +772,7 @@ class Engine:
         if self._plan is None or self._plan_key != key:
             self._plan = self._make_plan(extent_b, dr, tr, rt, shape, gsize=gsize)
             self._plan_key = key
+            self.plan_builds += 1
         return self._plan
 
     def _current_tables(self):
@@ -976,3 +991,106 @@ class Engine:
                 itmin = span[0]
             self._refs[irc] = (np.asarray(values, np.float32), int(itmin))
         self._invalidate()
+
+    # -- read-back (minimizer_engine.f90:1150-1258) ---------------------------
+
+    def get_misfits(self):
+        """Per-(receiver, component) (misfit, norm) and the per-receiver
+        floating shifts (samples) for the current source, host arrays."""
+        m, n, fs = to_host(*self.misfits_for_source_batch(self.source_params[None, :]))
+        m = m[0]
+        if np.isnan(m).any():  # minimizer_engine.f90:1163-1166
+            LOG.warning("NaN misfit(s) for rc rows %s", np.flatnonzero(np.isnan(m)))
+        return m, n[0], fs[0]
+
+    def get_global_misfit(self):
+        m, n, _ = self.misfits_for_source_batch(self.source_params[None, :])
+        return float(mf.global_misfit(m[0], n[0]))
+
+    def get_distances(self):
+        """(distances m, azimuths rad) of the receivers from the source origin."""
+        geom = self._geometry()
+        return np.asarray(geom.dist), np.asarray(geom.azi)
+
+    def get_floating_shifts(self):
+        """The current source's per-receiver floating shifts in seconds."""
+        _m, _n, fs = self.misfits_for_source_batch(self.source_params[None, :])
+        return to_host(fs)[0][0] * self.store.dt
+
+    # -- parameter masks / subparameters (minimizer_engine.f90:525-610) -------
+
+    def set_source_params_mask(self, mask):
+        model = get_source_model(self.source_type)
+        mask = np.asarray(mask, dtype=bool)
+        if mask.shape != (model.nparams,):
+            raise ValueError("wrong number of elements in mask")
+        self.params_mask = mask
+        self.subparam_mins = None
+        self.subparam_maxs = None
+
+    def set_source_subparams(self, subparams, normalized=False):
+        if self.source_params is None:
+            raise RuntimeError("source parameters must be set prior to subparams")
+        mask = self.params_mask
+        if mask is None:
+            raise RuntimeError("no source params mask set")
+        sub = np.asarray(subparams, dtype=np.float32)
+        if sub.shape[0] != int(mask.sum()):
+            raise ValueError("wrong number of subparams")
+        model = get_source_model(self.source_type)
+        p = self.source_params.copy()
+        p[mask] = sub * model.norm[mask] if normalized else sub
+        self.set_source_params(self.source_type, p)
+
+    def get_source_subparams(self, normalized=False):
+        mask = self.params_mask
+        if mask is None:
+            raise RuntimeError("no source params mask set")
+        model = get_source_model(self.source_type)
+        sub = self.source_params[mask]
+        return sub / model.norm[mask] if normalized else sub
+
+    def set_source_subparams_limits(self, mins, maxs):
+        mask = self.params_mask
+        n = int(mask.sum()) if mask is not None else 0
+        mins = np.asarray(mins, np.float64)
+        maxs = np.asarray(maxs, np.float64)
+        if mins.shape[0] != n or maxs.shape[0] != n:
+            raise ValueError("wrong number of subparam limits")
+        self.subparam_mins = mins
+        self.subparam_maxs = maxs
+
+    def minimize_lm(self):
+        """(info, nfev, misfit) -- minimizer_engine.f90:729-805."""
+        from .invert import minimize_lm as _lm
+
+        return _lm(self, mask=self.params_mask, subparam_mins=self.subparam_mins,
+                   subparam_maxs=self.subparam_maxs)
+
+    def get_principal_axes(self):
+        """(pax, tax) as (azimuth, colatitude) degrees for sdr-type sources
+        (minimizer_engine.f90:1248-1258); zeros for the others."""
+        from .euler import pt_axes, rotmats_from_sdr
+        from .sources.base import DEG2RAD_F32
+
+        names = get_source_model(self.source_type).names
+        if "strike" not in names or "dip" not in names or "slip-rake" not in names:
+            return np.zeros(2), np.zeros(2)
+        p = self.source_params
+        strike = float(p[names.index("strike")]) * float(DEG2RAD_F32)
+        dip = float(p[names.index("dip")]) * float(DEG2RAD_F32)
+        rake = float(p[names.index("slip-rake")]) * float(DEG2RAD_F32)
+        _rr, rs = rotmats_from_sdr(strike, dip, rake, 0.0)
+        return pt_axes(rs)
+
+
+def to_host(*tensors):
+    """Host numpy copies of tensors: from the card through pinned buffers
+    with one stream synchronization for all of them."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for o, t in zip(out, tensors):
+        o.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [o.numpy() for o in out]

@@ -66,6 +66,9 @@ class SourceModel:
     def nparams(self):
         return len(self.names)
 
+    def param_index(self, name):
+        return self.names.index(name)
+
 
 def _cols_const(pb, idx):
     """True iff the given param columns are identical across the batch."""
