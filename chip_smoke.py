@@ -6,7 +6,8 @@ kiwibench point sweep (bench.py's bench_point / bench_point_filtered
 configuration), the finite-source batches (bench.py's bench_finite, and
 the same with a band-pass) and the eikonal-rupture grid search (bench.py's
 bench_eikonal), then a grid search and a Levenberg-Marquardt inversion on
-the finite session -- and fails on the first phase that goes wrong:
+the finite session, then the minimizer text protocol replaying
+benchmark/mini.inp -- and fails on the first phase that goes wrong:
 
 1. build the CUDA kernels from kiwi_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc process per source, all started together;
@@ -63,16 +64,33 @@ the finite session -- and fails on the first phase that goes wrong:
    4, on the operands these runs gave them: the grid's last full chunk
    (512 models) and its ragged last one (440), LM's last Jacobian call (4
    rows, the source-tile instance) and its closing get_global_misfit (one
-   row, the direct instance);
+   row, the direct instance); then the minimizer text protocol
+   (kiwi_tpu_torch.cli.minimizer.MinimizerServer on the card, in
+   build/kiwi_tpu_torch/mini/): benchmark/mini.inp replayed as
+   benchmark/run_mini.py sets it up (11 `ned` receivers at 3-4 km, the
+   first 7 lines warm, the 7 further syntheses and their files timed:
+   mini_inp_seconds), then a session (MINI_SESSION: references read back
+   from MiniSEED files through the native codec, which must have built;
+   floating_l1norm, then ampspec_l2norm and ampspec_l1norm under the
+   band-pass; peak amplitudes, Arias intensities, spectra, cross
+   correlations, autoshift) and MINI_LM (LM from the lm phase's offsets,
+   which must recover the truth as there); no command may answer nok but
+   minimize_gradient; the window and scan kernels held against their plain
+   versions on the operands of MINI_SESSION's and of MINI_LM's calls, the
+   last call of each shape (LM's 4-row Jacobian calls through the
+   source-tile instance at the protocol's 11 receivers among them);
 7. run the first 16 strikes of each sweep, the first 32 models of each
    finite configuration, the first and last 32 of the grid, the LM start
    and end, and the first 8 radii on a CPU Engine and require 1e-5
    relative agreement with the card (global misfits; for the finite
    batches, the grid and LM also misfits and norms; at LM's end, where the
    misfits are near 0, their difference within OPT_TOL of the largest
-   norm);
+   norm); the protocol session on a CPU server, answer by answer (shifts
+   exactly) and file by file, and its misfits at the card's LM end (at
+   OPT_TOL);
 8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
-   eikonal calls, 2 grid computes and 2 LM runs from the start with
+   eikonal calls, 2 grid computes, 2 LM runs from the start, 2 timed
+   mini.inp blocks and 1 protocol session with
    torch.profiler: the device time by kernel, the device's busy time, the
    host syncs, and for eikonal the host-side batch preparation alone.
 
@@ -87,8 +105,10 @@ finite batch), and last
 device it exits nonzero and prints no result.
 """
 
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -135,6 +155,17 @@ BOOTSTRAP = 200
 # Levenberg-Marquardt from (+0.05 s, +5, -4, +6 degrees) off the truth
 LM_FREE = (0, 5, 6, 7)  # time, strike, dip, slip-rake
 LM_OFFSET = np.array([0.05, 5.0, -4.0, 6.0], np.float32)
+# the text protocol: benchmark/mini.inp's finite source (moment 1.0), the
+# session's source off it, and LM's start (time, strike, dip, slip-rake)
+MINI_BASE = np.array([0, 0, 0, 5000.0, 1.0, 91.0, 87.0, 164.0, 0.0, 900.0, 700.0, 1000.0,
+                      2500.0, 0.2], np.float32)
+MINI_OFF = MINI_BASE.copy()
+MINI_OFF[[0, 5, 6, 7]] += np.array([0.1, 3.0, -2.0, 4.0], np.float32)
+MINI_LM_START = MINI_BASE.copy()
+MINI_LM_START[list(LM_FREE)] += LM_OFFSET
+MINI_RECEIVERS = 11  # benchmark/run_mini.py:48-53: `ned` at 3-4 km
+# answers compared exactly between the card and the CPU port (shifts)
+EXACT = ("set_receivers", "get_floating_shifts", "autoshift_ref_seismogram")
 SOURCES = {
     "fused_scan": "kiwi_tpu_torch/csrc/float_scan.cu",
     "fused_scan_masked": "kiwi_tpu_torch/csrc/float_scan.cu",
@@ -333,6 +364,17 @@ def window_batch(args):
 def scan_batch(args):
     """The batch size of a scan_sums call: syn [RC, B, W]."""
     return int(args[1].shape[1])
+
+
+def window_shapes(args):
+    """A window_forward call's shapes: node_rows [B, R, P], G, nt_ext and
+    nt_out."""
+    return tuple(args[1].shape) + (int(args[3].shape[2]), int(args[0].shape[2]), int(args[6]))
+
+
+def scan_shapes(args):
+    """A scan_sums call's shapes: ref [S*RC, W] and syn [RC, B, W]."""
+    return tuple(args[0].shape) + tuple(args[1].shape)
 
 
 def capture_operands(eng, strikes):
@@ -876,6 +918,219 @@ def run_lm(eng, start, out):
     return nfev / seconds
 
 
+def bilateral(p):
+    return "bilateral " + " ".join(f"{float(x):.9g}" for x in p)
+
+
+# the protocol session after the mini.inp replay: references read back from
+# MiniSEED files, floating_l1norm unfiltered (the window kernel, then the
+# scan), both ampspec norms under the band-pass (the window kernel), the
+# diagnostics; compared answer by answer with a CPU server
+MINI_SESSION = f"""set_source_params {bilateral(MINI_BASE)}
+output_seismograms ref mseed synthetics plain
+set_ref_seismograms ref mseed
+set_source_params {bilateral(MINI_OFF)}
+set_misfit_method floating_l1norm
+set_floating_shiftrange 0 -1.0 1.0
+get_global_misfit
+get_misfits
+get_floating_shifts
+set_misfit_filter {" ".join(f"{x:g} {y:g}" for x, y in zip(*BAND))}
+set_misfit_method ampspec_l2norm
+get_global_misfit
+get_misfits
+get_floating_shifts
+set_misfit_method ampspec_l1norm
+get_global_misfit
+get_misfits
+get_floating_shifts
+get_peak_amplitudes 1
+get_peak_amplitudes 2
+get_arias_intensities
+output_seismogram_spectra spec synthetics filtered
+output_cross_correlations xcorr -0.5 0.5
+autoshift_ref_seismogram 0 -0.5 0.5
+minimize_gradient
+"""
+# LM on the card from a clean receiver set (no filter, references as read)
+MINI_LM = f"""set_receivers receivers.table
+set_ref_seismograms ref mseed
+set_misfit_method l2norm
+set_floating_shiftrange 0 0 0
+set_source_params {bilateral(MINI_LM_START)}
+set_source_params_mask {" ".join("T" if i in LM_FREE else "F" for i in range(MINI_BASE.size))}
+minimize_lm
+get_source_subparams
+get_misfits
+"""
+
+
+def mini_workdir(name):
+    """A fresh directory under build/ for a protocol session: the store
+    (benchdb.npz, a link to the cached one) and benchmark/run_mini.py:48-53's
+    receivers.table."""
+    from kiwi_tpu_torch import geo
+
+    d = os.path.join(HERE, "build", "kiwi_tpu_torch", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    os.symlink(STORE_CACHE, os.path.join(d, "benchdb.npz"))
+    rows = []
+    for dist in np.linspace(3000.0, 4000.0, MINI_RECEIVERS):
+        la, lo = geo.ne_to_latlon(np.radians(30.0), np.radians(70.0), float(dist), 0.0)
+        rows.append(f"{np.degrees(float(la)):.6f} {np.degrees(float(lo)):.6f} ned")
+    with open(os.path.join(d, "receivers.table"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return d
+
+
+def protocol(srv, workdir, script):
+    """script's lines through srv.run in workdir: [(command, ok, [answer
+    lines])]."""
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        srv.run(io.StringIO(script), buf)
+    finally:
+        os.chdir(cwd)
+    out = []
+    for line in buf.getvalue().splitlines():
+        if ": ok" in line or ": nok" in line:
+            cmd, status = line.split(": ", 1)
+            out.append((cmd, status.startswith("ok"), []))
+        else:
+            out[-1][2].append(line)
+    return out
+
+
+def numbers(lines):
+    return np.array([float(w) for line in lines for w in line.split()])
+
+
+def mini_lines():
+    with open(os.path.join(HERE, "benchmark", "mini.inp")) as f:
+        return f.read().strip().splitlines()
+
+
+def run_protocol(out, device="cuda"):
+    """benchmark/run_mini.py's replay of benchmark/mini.inp through
+    kiwi_tpu_torch.cli.minimizer.MinimizerServer on the card (the first 7
+    lines warm, the rest timed: mini_inp_seconds), then MINI_SESSION and
+    MINI_LM on the same server; no command may answer nok but
+    minimize_gradient, and LM must recover the truth as the lm phase does.
+    out["protocol"]: the session's answers and files, LM's end, and the
+    window and scan operands of MINI_SESSION's and MINI_LM's calls (the
+    last call of each shape of each)."""
+    import torch
+
+    from kiwi_tpu_torch import misfit as mf, native
+    from kiwi_tpu_torch.cli.minimizer import MinimizerServer
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    if native.get_lib() is None:
+        fail("protocol: the native MiniSEED library did not build")
+    work = mini_workdir("mini")
+    lines = mini_lines()
+    srv = MinimizerServer(device=device)
+    t0 = time.perf_counter()
+    answers = protocol(srv, work, "\n".join(lines[:7]))
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers += protocol(srv, work, "\n".join(lines[7:]))
+    seconds = time.perf_counter() - t0
+    nsynth = sum(c == "output_seismograms" and ok for c, ok, _a in answers)
+    tables = [f for f in os.listdir(work) if f.startswith("seis-")]
+    log(f"phase protocol: mini.inp {len(lines)} commands, warm block (set-up and 1 synthesis) "
+        f"{warm:.4f} s, {nsynth - 1} further syntheses and file output {seconds:.4f} s "
+        f"({(nsynth - 1) / seconds:.2f} models/s); {len(tables)} seismogram files")
+    log(f"mini_inp_seconds {seconds:.6f}")
+    if nsynth != 8 or len(tables) != 3 * MINI_RECEIVERS:
+        fail(f"protocol: mini.inp gave {nsynth} syntheses and {len(tables)} files")
+
+    def held(script, answers):
+        """script's answers into `answers`; its window and scan operands."""
+        scans = []
+        windows = capture(sw, "window_forward", lambda: scans.extend(capture(
+            mf, "scan_sums", lambda: answers.extend(protocol(srv, work, script)), scan_shapes)),
+            window_shapes)
+        return windows, scans
+
+    session, lm, ops = [], [], {}
+    t0 = time.perf_counter()
+    ops["session"] = held(MINI_SESSION, session)
+    t_session = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops["lm"] = held(MINI_LM, lm)
+    t_lm = time.perf_counter() - t0
+    for part, (windows, scans) in ops.items():
+        log(f"phase protocol {part}: window_forward shapes (B, R, P, G, nt_ext, nt_out) "
+            f"{[window_shapes(a) for a, _kw in windows]}, scan_sums shapes (S*RC, W, RC, B, W) "
+            f"{[scan_shapes(a) for a, _kw in scans]}")
+    answers += session + lm
+    noks = [(c, a) for c, ok, a in answers if not ok]
+    log(f"phase protocol: session {len(session)} commands in {t_session:.4f} s, LM session "
+        f"{len(lm)} in {t_lm:.4f} s; nok: {noks}")
+    if [c for c, _a in noks] != ["minimize_gradient"]:
+        fail(f"protocol: commands answered nok: {noks}")
+    res = {c: a for c, _ok, a in lm}
+    info, nfev, gm = numbers(res["minimize_lm"])
+    p = srv.engine.source_params.copy()
+    log(f"phase protocol lm: info {int(info)}, nfev {int(nfev)}, global misfit {gm:.4e}; "
+        f"subparams {' '.join(res['get_source_subparams'])} (true 0, 91, 87, 164)")
+    off = np.abs(p[[5, 6, 7]] - MINI_BASE[[5, 6, 7]])
+    if not (np.isfinite(gm) and gm < 0.02 and (off < 0.5).all()):
+        fail(f"protocol lm: misfit {gm}, strike/dip/slip-rake off the truth by {off}")
+    torch.cuda.synchronize()
+    out["protocol"] = {"session": session, "dir": work, "lm_end": p, "server": srv,
+                       "lm_misfits": numbers(res["get_misfits"]), "ops": ops}
+    return seconds
+
+
+def compare_protocol(prot):
+    """MINI_SESSION on a CPU server against the card's answers (each
+    numeric answer at TOL of its largest value, shifts exactly) and files
+    (each at TOL of its largest sample); then the CPU server at LM's end on
+    the card, its misfits at OPT_TOL of the largest norm."""
+    from kiwi_tpu_torch.cli.minimizer import MinimizerServer
+    from kiwi_tpu_torch.io import readseismogram
+
+    cpu = MinimizerServer(device="cpu")
+    work = mini_workdir("mini_cpu")
+    prefix = mini_lines()[:5]  # set_database ... set_source_location
+    want = protocol(cpu, work, "\n".join(prefix) + "\n" + MINI_SESSION)[len(prefix):]
+    got = prot["session"]
+    if [(c, ok) for c, ok, _a in got] != [(c, ok) for c, ok, _a in want]:
+        fail("protocol: the card's and the CPU's ok/nok sequences differ")
+    worst = 0.0
+    for (cmd, ok, a), (_c, _ok, b) in zip(got, want):
+        if not ok or not b:
+            continue
+        g, w = numbers(a), numbers(b)
+        if g.shape != w.shape or (cmd in EXACT and not (g == w).all()):
+            fail(f"protocol: {cmd} answers {a} on the card, {b} on the CPU")
+        rel = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= TOL:
+            fail(f"protocol: {cmd}: card vs CPU rel diff {rel:.3e} > {TOL}")
+    files = sorted(f for f in os.listdir(work) if f.startswith(("spec-", "xcorr-", "ref-")))
+    fworst = 0.0
+    for name in files:
+        (g, gt, gdt), (w, wt, wdt) = (readseismogram(os.path.join(d, name))
+                                      for d in (prot["dir"], work))
+        rel = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        fworst = max(fworst, rel)
+        if g.shape != w.shape or gdt != wdt or abs(gt - wt) > 1e-6 * wdt or not rel <= TOL:
+            fail(f"protocol: file {name} differs between the card and the CPU ({rel:.3e})")
+    log(f"phase card-vs-cpu protocol: {len(got)} answers, max rel diff {worst:.3e}; "
+        f"{len(files)} files, max rel diff {fworst:.3e}")
+    end = MINI_LM.replace(bilateral(MINI_LM_START), bilateral(prot["lm_end"]))
+    end = end.replace("minimize_lm\n", "").replace("get_source_subparams\n", "")
+    w = numbers(dict((c, a) for c, _ok, a in protocol(cpu, work, end))["get_misfits"])
+    g = prot["lm_misfits"]
+    compare_misfits("protocol lm end", (g[0::2], g[1::2]), (w[0::2], w[1::2]), optimum=True)
+
+
 def compare_misfits(label, got, want, optimum=False):
     """Card vs CPU (misfits, norms[, shifts]) host arrays: the max abs diff
     of each over its own largest |value|, at TOL.  optimum: the misfits'
@@ -1039,6 +1294,7 @@ def main():
         ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
         ("grid", ("window_synth", "scan_sums"), lambda: run_grid(finite["finite"], inv)),
         ("lm", ("window_synth",), lambda: run_lm(lm, lm_start, inv)),
+        ("protocol", ("window_synth", "scan_sums"), lambda: run_protocol(inv)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
@@ -1046,6 +1302,10 @@ def main():
     for label in ("grid", "lm"):
         log(f"phase kernel-vs-plain window_synth, scan_sums ({label} call operands):")
         check_captured(label, *inv[f"{label}_ops"], results)
+    for part, ops in inv["protocol"]["ops"].items():
+        log(f"phase kernel-vs-plain window_synth, scan_sums (protocol {part} call operands):")
+        check_captured(f"protocol {part}", *ops, results)
+    compare_protocol(inv["protocol"])
 
     for label, eng in engines.items():
         cpu = make_engine(store, "cpu", filtered=label == "filtered")
@@ -1092,11 +1352,19 @@ def main():
         lm.minimize_lm()
 
     profile_calls("lm", lm_run, reps=2)
+    prot = inv["protocol"]
+    replay = "\n".join(mini_lines()[7:])
+    profile_calls("protocol mini.inp", lambda: protocol(prot["server"], prot["dir"], replay),
+                  reps=2)
+    profile_calls("protocol session", lambda: protocol(prot["server"], prot["dir"], MINI_SESSION),
+                  reps=1)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log("models/s (lm: rows evaluated per second) " + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()))
+    log("models/s (lm: rows evaluated per second) "
+        + ", ".join(f"{k} {v:.0f}" for k, v in mps.items() if k != "protocol"))
+    log(f"mini_inp_seconds {mps['protocol']:.6f} ({smi})")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

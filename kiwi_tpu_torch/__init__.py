@@ -20,9 +20,10 @@ kernel, ops/float_scan.py), the finite-source batches
 (Engine.misfits_for_source_batch through the window synthesis kernel,
 ops/synth_window.py, and the scan kernel) and the eikonal ruptures (their
 device discretizer through the fast-sweeping kernel, ops/eik_sweep.py)
-under the time-domain norms, the engine's read-back getters, and grid
-search and Levenberg-Marquardt inversions on them (invert/); see
-README.md.
+under the time-domain and amplitude-spectrum norms, the engine's
+read-back getters and diagnostics, grid search and Levenberg-Marquardt
+inversions on them (invert/), and the minimizer text protocol
+(cli/minimizer.py) with its seismogram I/O (io/, native/); see README.md.
 """
 
 import torch as _torch

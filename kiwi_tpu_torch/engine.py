@@ -1,7 +1,8 @@
 """Session engine: source + GF store + receivers -> seismograms -> misfits
-(port of the batch-evaluation and read-back surface of kiwi_tpu/engine.py,
-with the parameter masks and Levenberg-Marquardt entry point that
-kiwi_tpu_torch.invert builds on).
+(port of the batch-evaluation, read-back and diagnostics surface of
+kiwi_tpu/engine.py, with the parameter masks and Levenberg-Marquardt entry
+point that kiwi_tpu_torch.invert builds on; the minimizer protocol of
+kiwi_tpu_torch.cli.minimizer drives it).
 
 One object holds the configured database, receiver set, source and misfit
 setup.  Configuration changes invalidate a "plan" (static window/probe
@@ -20,7 +21,7 @@ Three forwards, as in the JAX package:
   window synthesis kernel (ops/synth_window.py), then the scan kernel
   (ops/float_scan.scan_sums) on unfiltered floating plans or the masked
   plain-torch evaluation (misfit.evaluate_misfits) on filtered floating
-  plans and under the time-domain norms.
+  plans and under the time-domain and amplitude-spectrum norms.
 The eikonal sources discretize a whole batch on the device (prepare_batch
 on the host, then sources/eikonal.discretize_device_batch with the
 fast-sweeping kernel ops/eik_sweep.py), cross-checked once per table shape
@@ -58,9 +59,8 @@ from .sources import get_source_model
 
 F32 = torch.float32
 
-# an unported case names the ROADMAP.md (queue 1) item that brings it
-_TODO_NORMS = "spectral misfit norms (ampspec_l1norm, ampspec_l2norm): ROADMAP.md queue 1, item 4"
 LOG = logging.getLogger("kiwi_tpu_torch")
+# an unported case names the ROADMAP.md (queue 1) item that brings it
 _TODO_WINDOW = ("plans outside the window kernel (extended time axis above "
                 f"{synth_window.T_MAX} samples, or a GF store with other than 8 or 10 "
                 "components) need the XLA formulations (synthesize_with_spans & co): "
@@ -89,6 +89,7 @@ class Receiver:
     components: str  # e.g. "ned" (receiver.f90:35-56)
     depth: float = 0.0
     enabled: bool = True
+    name: str = ""
 
 
 class Engine:
@@ -373,7 +374,7 @@ class Engine:
             tmin, tmax = self._per_rec_shiftrange.get(r, self.floating_shiftrange_s)
             setup.shift_lo[irc] = int(fnint(np.float32(tmin) / np.float32(store.dt)))
             setup.shift_hi[irc] = int(fnint(np.float32(tmax) / np.float32(store.dt)))
-        ctx = setup.to(dev)
+        ctx = setup.to(dev, self.misfit_method)
 
         # static union window for the misfit sums: every possible norm span
         # (ref spans under all floating shifts, the synthesis window +- fold,
@@ -394,12 +395,7 @@ class Engine:
         method = self.misfit_method
         any_taper = bool(setup.has_taper.any())
         any_filter = bool(setup.has_filter.any())
-        # the reference context exists for the floating and the time-domain
-        # norms; a plan under a spectral norm still synthesizes
-        # (set_synthetic_reference)
-        rctx = None
-        if method in mf.FLOATING or method in mf.TIME_DOMAIN:
-            rctx = mf.precompute_ref_context(ctx, method, st, (s1, s2), any_taper, any_filter)
+        rctx = mf.precompute_ref_context(ctx, method, st, (s1, s2), any_taper, any_filter)
 
         rc_rec_t = torch.as_tensor(rc_rec, device=dev)
         rc_chan_t = torch.as_tensor(rc_chan, device=dev)
@@ -499,7 +495,8 @@ class Engine:
         def eval_batch(syn_rc, lo_rc, hi_rc, moments, risetimes):
             """The scan kernel on unfiltered floating plans, the masked
             per-model evaluation (FFT filter chain) on filtered floating
-            plans and under the time-domain norms."""
+            plans and under the time-domain norms, the per-pair spectra
+            under the amplitude-spectrum norms."""
             if method in mf.FLOATING and not any_filter:
                 evaluate = mf.evaluate_misfits_floating_batch
             else:
@@ -535,15 +532,21 @@ class Engine:
                                   hi[:, rc_rec_t, span_idx_t], moments, risetimes)
 
         # per-source transient bytes of the batch forwards (kinematics and
-        # packed weights, traces, probes, scan or masked-eval blocks)
+        # packed weights, traces, probes, scan or masked-eval blocks; under
+        # an amplitude-spectrum norm the extended-grid rows, pair masks and
+        # spectra of ref and synthetic)
         nrc = len(layout)
         _i0, wk = mf.eval_window_slice(eval_win, st)
         per_source_bytes = 4 * (nrec * ncent * 48 + nrec * 9 * cfg.nt_out
                                 + nrc * st.pl * 8 + (s2 - s1 + 1) * nrc * wk * 3)
+        if method in mf.AMPSPEC:
+            per_source_bytes += 4 * nrc * mf.amp_grid(st.ps0, st.pl)[1] * 12
 
         return {
             "cfg": cfg,
             "st": st,
+            "setup": setup,
+            "ctx": ctx,
             "rctx": rctx,
             "use_fused_scan": use_fused_scan,
             "forward_shared_fused": forward_shared_fused,
@@ -811,8 +814,6 @@ class Engine:
                                      gsize=gsize)
             if plan["forward_batch"] is None:
                 raise NotImplementedError(_TODO_WINDOW)
-            if plan["rctx"] is None:
-                raise NotImplementedError(_TODO_NORMS)
             fwd = plan["forward_batch"]
 
             def rows(i, j):
@@ -822,8 +823,6 @@ class Engine:
             moments, risetimes = self._post_factors(model, pb)
             plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape,
                                      self._param_stats(model, pb), gsize=int(shape[-1]))
-            if plan["rctx"] is None:
-                raise NotImplementedError(_TODO_NORMS)
             fwd = self._batch_forward(model, pb, plan, risetimes)
             pbt = torch.as_tensor(pb, device=self.device)
 
@@ -912,8 +911,6 @@ class Engine:
         _m3, r3 = self._post_factors(model, pb3)
         plan = self._ensure_plan(float(r3.max(initial=0.0)), shape, stats,
                                  gsize=int(shape[-1]))
-        if plan["rctx"] is None:
-            raise NotImplementedError(_TODO_NORMS)
         shared = model.shared_kin_check(pb3)
         # the post factors depend on the swept column alone, so equal probe
         # risetimes == batch-uniform risetimes (the STF fold of the shared
@@ -959,16 +956,12 @@ class Engine:
         trimmed to the physical data span -- probe_get_plain equivalents."""
         plan, cbatch, moments, risetimes = self._current_tables()
         cent = {k: v[0] for k, v in cbatch.items()}
-        syn, lo, hi = plan["synth_one"](
+        syn, lo, hi = to_host(*plan["synth_one"](
             cent, float(np.float32(moments[0])),
-            torch.tensor(risetimes[0], dtype=F32, device=self.device))
-        syn = syn.cpu().numpy()
+            torch.tensor(risetimes[0], dtype=F32, device=self.device)))
         if not np.isfinite(syn).all():  # seismogram.f90:290-295's NaN/huge check
-            logging.getLogger("kiwi_tpu_torch").warning(
-                "non-finite synthetic seismogram samples "
-                "(source outside the GF database's validity range?)")
-        lo = lo.cpu().numpy()
-        hi = hi.cpu().numpy()
+            LOG.warning("non-finite synthetic seismogram samples "
+                        "(source outside the GF database's validity range?)")
         it0 = plan["cfg"].out_it0
         nt = plan["cfg"].nt_out
         out = []
@@ -1082,6 +1075,177 @@ class Engine:
         rake = float(p[names.index("slip-rake")]) * float(DEG2RAD_F32)
         _rr, rs = rotmats_from_sdr(strike, dip, rake, 0.0)
         return pt_axes(rs)
+
+    # -- probe-processed traces (probe_get_*, comparator.f90:333-433) ---------
+    # Each diagnostic computes on the engine's device and copies its rows to
+    # the host once (to_host).
+
+    def _probe_rows(self, which):
+        """(plan, probe rows f32[RC, PL], data spans lo, hi int[RC]), all on
+        the engine's device: the current source's synthetics (moment and
+        rise time applied) placed on the probe, or the references as
+        installed (not amplitude-normalized)."""
+        plan, cbatch, moments, risetimes = self._current_tables()
+        st, setup, dev = plan["st"], plan["setup"], self.device
+        if which == "synthetics":
+            cent = {k: v[0] for k, v in cbatch.items()}
+            syn, lo, hi = plan["synth_one"](
+                cent, float(np.float32(moments[0])),
+                torch.tensor(risetimes[0], dtype=F32, device=dev))
+            return plan, mf.place_on_probe(syn, plan["cfg"].out_it0, st), lo, hi
+        return (plan, torch.as_tensor(setup.ref, device=dev),
+                torch.as_tensor(setup.ref_lo, device=dev),
+                torch.as_tensor(setup.ref_hi, device=dev))
+
+    def get_processed_seismograms(self, which="synthetics", processing="plain"):
+        """[(values, itmin)] rows for output_seismograms: plain, tapered or
+        filtered processing like probe_get (comparator.f90:421-433)."""
+        if which == "synthetics" and processing == "plain":
+            return self.get_synthetic_seismograms()
+        plan, arr, lo, hi = self._probe_rows(which)
+        st, setup = plan["st"], plan["setup"]
+        tap, filt = mf.processed_arrays(plan["ctx"], arr, st)
+        arr, tap, filt, lo, hi = to_host(arr, tap, filt, lo, hi)
+        out = []
+        for irc in range(setup.nrc):
+            if processing == "plain":
+                row, a, b = arr[irc], lo[irc], hi[irc]
+            elif processing == "tapered":
+                if setup.has_taper[irc]:
+                    # span = taper span ^ data span, falling back to the data
+                    # span when empty (probe_get_tapered, comparator.f90:380-391)
+                    row = tap[irc]
+                    a = max(setup.taper_lo[irc], int(lo[irc]))
+                    b = min(setup.taper_hi[irc], int(hi[irc]))
+                    if a > b:
+                        a, b = int(lo[irc]), int(hi[irc])
+                else:
+                    row, a, b = arr[irc], lo[irc], hi[irc]
+            elif processing == "filtered":
+                if setup.has_filter[irc]:
+                    row = filt[irc]
+                    a = setup.taper_lo[irc] if setup.has_taper[irc] else lo[irc]
+                    b = setup.taper_hi[irc] if setup.has_taper[irc] else hi[irc]
+                else:
+                    row, a, b = (tap[irc], setup.taper_lo[irc], setup.taper_hi[irc]) \
+                        if setup.has_taper[irc] else (arr[irc], lo[irc], hi[irc])
+            else:
+                raise ValueError(f"unknown processing {processing!r}")
+            a = int(np.clip(a, st.ps0, st.ps0 + st.pl - 1))
+            b = int(np.clip(b, a, st.ps0 + st.pl - 1))
+            out.append((row[a - st.ps0 : b - st.ps0 + 1].copy(), a))
+        return out
+
+    def get_amp_spectra(self, which="synthetics", processing="filtered"):
+        """[(amplitudes, df)] rows on the probe grid
+        (probe_get_amp_spectrum, comparator.f90:333-354)."""
+        plan, arr, _lo, _hi = self._probe_rows(which)
+        st, setup, ctx = plan["st"], plan["setup"], plan["ctx"]
+        tapered, _ = mf.processed_arrays(ctx, arr, st, use_fft=False)
+        amp, ampf = to_host(*mf.amp_spectra(ctx, tapered))
+        return [((ampf[irc] if processing == "filtered" and setup.has_filter[irc]
+                  else amp[irc]).copy(), st.df) for irc in range(setup.nrc)]
+
+    def get_cross_correlations(self, shiftrange_s):
+        """f32[S, RC] windowed cross correlations and the shifts in samples
+        (output_cross_correlations, minimizer_engine.f90:1283-1307)."""
+        plan, arr, _lo, _hi = self._probe_rows("synthetics")
+        dt = np.float32(self.store.dt)
+        s1 = int(fnint(np.float32(shiftrange_s[0]) / dt))
+        s2 = int(fnint(np.float32(shiftrange_s[1]) / dt))
+        cc = mf.cross_correlation(plan["ctx"], arr, (s1, s2), plan["st"])
+        return to_host(cc)[0], np.arange(s1, s2 + 1)
+
+    def autoshift_ref_seismograms(self, shiftrange_s, ireceiver=None):
+        """Shift the references to the cross-correlation power maximum
+        (receiver_autoshift_ref_seismogram, receiver.f90:816-832); the
+        shifts in seconds of the receivers shifted."""
+        cc, shifts = self.get_cross_correlations(shiftrange_s)
+        layout = self._rc_layout()
+        out = []
+        for irec in range(len(self.receivers)):
+            rows = [i for i, (r, _c) in enumerate(layout) if r == irec]
+            sub = cc[:, rows]  # [S, ncomp]
+            denom = max(1.0, float(sub.max()))
+            power = (np.maximum(sub / denom, 0.0) ** 2).sum(axis=1)
+            ishift = int(shifts[int(np.argmax(power))])
+            if ireceiver is None or ireceiver == irec:
+                self.shift_ref_seismogram(irec, ishift)
+                out.append(ishift * self.store.dt)
+        return np.array(out)
+
+    def shift_ref_seismogram(self, irec, ishift):
+        """Move receiver irec's references by ishift samples."""
+        for irc, (r, _c) in enumerate(self._rc_layout()):
+            if r == irec and irc in self._refs:
+                values, itmin = self._refs[irc]
+                self._refs[irc] = (values, itmin + int(ishift))
+        self._invalidate()
+
+    def get_peak_amplitudes(self, differentiate):
+        """Per enabled receiver the max |d^k u/dt^k| vector norm over its
+        grouped components (get_peak_amplitudes,
+        minimizer_engine.f90:1174-1212)."""
+        return self._vec_diagnostic(differentiate=differentiate)
+
+    def get_arias_intensities(self):
+        """Per enabled receiver (minimizer_engine.f90:1214-1246)."""
+        return self._vec_diagnostic(arias=True)
+
+    def _vec_diagnostic(self, differentiate=None, arias=False):
+        """Peak amplitudes or Arias intensities of the current synthetics.
+        Each receiver groups a vertical and two horizontal rows
+        (get_component_ids, receiver.f90:512-542); each row is the filtered,
+        else tapered, else plain probe row over the taper span, else its
+        data span, from that span's own first sample, and the group is cut
+        to its shortest row.  Computed on the device in float64; 0 for a
+        receiver with no such row."""
+        plan, arr, lo, hi = self._probe_rows("synthetics")
+        st, setup, dev = plan["st"], plan["setup"], self.device
+        tap, filt = mf.processed_arrays(plan["ctx"], arr, st)
+        has_t = torch.as_tensor(setup.has_taper, device=dev)
+        rows = torch.where(torch.as_tensor(setup.has_filter, device=dev)[:, None], filt,
+                           torch.where(has_t[:, None], tap, arr))
+        a = torch.where(has_t, torch.as_tensor(setup.taper_lo, device=dev), lo) - st.ps0
+        b = torch.where(has_t, torch.as_tensor(setup.taper_hi, device=dev), hi) - st.ps0
+        length = torch.clamp(torch.clamp(b + 1, max=st.pl) - a, min=0)  # row[a:b + 1]
+
+        layout = self._rc_layout()
+        groups, slots = [], []
+        for irec, rec in enumerate(self.receivers):
+            if not rec.enabled:
+                continue
+            rc = {c: i for i, (r, c) in enumerate(layout) if r == irec}
+            ver = next((rc[c] for c in "du" if c in rc), None)
+            h1 = next((rc[c] for c in "ac" if c in rc), None)
+            h2 = next((rc[c] for c in "rl" if c in rc), None)
+            if h1 is None or h2 is None:
+                h1 = next((rc[c] for c in "ns" if c in rc), None)
+                h2 = next((rc[c] for c in "ew" if c in rc), None)
+            if h1 is None or h2 is None:
+                h1 = h2 = None
+            used = [i for i in (ver, h1, h2) if i is not None]
+            slots.append(len(groups) if used else None)
+            if used:
+                groups.append(used + [-1] * (3 - len(used)))
+        values = np.zeros(0)
+        if groups:
+            idx = torch.as_tensor(groups, device=dev)  # [NG, 3], -1 = no row
+            live = idx >= 0
+            idx_c = torch.clamp(idx, min=0)
+            n = torch.where(live, length[idx_c], st.pl).amin(dim=1)  # [NG]
+            k = torch.arange(st.pl, device=dev)
+            src = torch.clamp(a[idx_c][..., None] + k, 0, st.pl - 1)  # [NG, 3, PL]
+            vals = torch.gather(rows[idx_c], -1, src)
+            vals = torch.where(live[..., None] & (k < n[:, None, None]), vals, 0.0)
+            order = 1 if differentiate == 1 and not arias else 2
+            mask = (k < (n - order)[:, None]).to(torch.float64)
+            if arias:
+                res = mf.arias_intensity(vals, mask, st)
+            else:
+                res = mf.peak_amplitude(vals, mask, differentiate, st)
+            values = to_host(res)[0]
+        return np.array([0.0 if s is None else float(values[s]) for s in slots])
 
 
 def to_host(*tensors):

@@ -61,6 +61,28 @@ class GFStore:
     def nt(self):
         return self.data.shape[3]
 
+    def get_indices(self, x, z):
+        """Nearest-node indices (gfdb_get_indices, gfdb.f90:781-792), 0-based."""
+        ix = fnint((np.float32(x) - np.float32(self.firstx)) / np.float32(self.dx))
+        iz = fnint((np.float32(z) - np.float32(self.firstz)) / np.float32(self.dz))
+        return int(ix), int(iz)
+
+    def span(self):
+        """(itmin_all, itmax_all) over stored traces; (0, 0) if empty."""
+        used = self.nsamples > 0
+        if not used.any():
+            return 0, 0
+        lo = int(self.itmin[used].min())
+        hi = int((self.itmin + self.nsamples - 1)[used].max())
+        return lo, hi
+
+    def get_trace(self, ix, iz, ig):
+        """(values, itmin) of the stored (unpadded) trace, or None if empty."""
+        n = int(self.nsamples[ix, iz, ig])
+        if n == 0:
+            return None
+        return self.data[ix, iz, ig, :n].copy(), int(self.itmin[ix, iz, ig])
+
     def to(self, device):
         """(data f32, itmin i32) tensors on `device`."""
         return (torch.as_tensor(self.data, device=device),

@@ -70,3 +70,40 @@ def pack_trace(values, it0):
         return np.zeros(1, dtype=np.float32), int(it0)
     first, last = span
     return v[first : last + 1].copy(), int(it0 + first)
+
+
+MAXGAP = 5  # sparse_trace.f90:25
+
+
+def pack_strips(values, itmin):
+    """Split a dense trace into sparse strips exactly like trace_pack
+    (sparse_trace.f90:443-555): nonzero runs separated by gaps of more than
+    MAXGAP zeros; each strip keeps one trailing zero when a gap (or the
+    trace end) follows; an all-zero trace yields a single zero sample at the
+    span start.  Returns [(start_abs_index, f32 array)]."""
+    v = np.asarray(values, dtype=np.float32)
+    n = v.shape[0]
+    strips = []
+    interest = False
+    gap = 0
+    ibeg = iend = 0
+    for i in range(n):
+        if v[i] != 0.0:
+            if not interest:
+                interest = True
+                ibeg = i
+            gap = 0
+            iend = i
+        elif interest:
+            gap += 1
+            if gap > MAXGAP:
+                strips.append((ibeg, v[ibeg : iend + 2].copy()))
+                interest = False
+    if interest:
+        if gap > 0:
+            strips.append((ibeg, v[ibeg : iend + 2].copy()))
+        else:
+            strips.append((ibeg, v[ibeg : iend + 1].copy()))
+    if not strips:
+        return [(int(itmin), np.zeros(1, dtype=np.float32))]
+    return [(int(itmin) + s, d) for s, d in strips]

@@ -1,6 +1,5 @@
-"""Waveform misfits: the floating norms and the time-domain norms (port of
-the parts of kiwi_tpu/misfit.py that the point sweep, the finite-source
-batches and the eikonal grid search reach).
+"""Waveform misfits: the floating, time-domain and amplitude-spectrum norms
+and the diagnostics built on the probes (port of kiwi_tpu/misfit.py).
 
 A "probe" is a power-of-two-length float32 array over a static absolute
 index span [ps0, ps0+pl), with the reference's extension convention: zeros
@@ -12,9 +11,11 @@ scan kernel on shared-kinematics plans, from the scan kernel over
 precomputed synthetics on unfiltered finite-source plans (both in
 ops/float_scan.py), and from plain torch with exact span masks on filtered
 finite-source plans (evaluate_misfits).  The time-domain norms (l2norm,
-l1norm, scalar_product, peak) have no kernel in either package:
-evaluate_misfits computes them in plain torch, batched over sources.  The
-spectral norms raise NotImplementedError naming their ROADMAP.md item.
+l1norm, scalar_product, peak) and the amplitude-spectrum norms
+(ampspec_l2norm, ampspec_l1norm) have no kernel in either package:
+evaluate_misfits computes them in plain torch, batched over sources, the
+spectra with torch.fft (the JAX package's are XLA FFTs outside any Pallas
+kernel).
 """
 
 from __future__ import annotations
@@ -51,8 +52,7 @@ NORM_NAMES = {
 }
 FLOATING = (FLOATING_L2NORM, FLOATING_L1NORM)
 TIME_DOMAIN = (L2NORM, L1NORM, SCALAR_PRODUCT, PEAK)
-_TODO_SPECTRAL = ("the spectral misfit norms (ampspec_l2norm, ampspec_l1norm) are not "
-                  "ported yet (ROADMAP.md queue 1, item 4)")
+AMPSPEC = (AMPSPEC_L2NORM, AMPSPEC_L1NORM)
 
 
 def next_pow2(n):
@@ -108,6 +108,8 @@ class MisfitSetup:
         self.taper_hi = np.full(nrc, static.ps0 + pl - 1, dtype=np.int32)
         self.filter_w = np.ones((nrc, nf), dtype=np.float32)
         self.has_filter = np.zeros(nrc, dtype=bool)
+        self.taper_plfs = {}
+        self.filter_plfs = {}
         self.syn_factor = np.ones(nrc, dtype=np.float32)
         self.enabled = np.ones(nrc, dtype=bool)
         # per-row floating shift ranges (samples); defaults allow the whole
@@ -148,6 +150,7 @@ class MisfitSetup:
         self.taper_lo[irc] = max(dlo, span[0])
         self.taper_hi[irc] = min(dhi, span[1])
         self.has_taper[irc] = True
+        self.taper_plfs[irc] = taper
 
     def set_filter(self, irc, filt: PLF):
         """Spectral filter on rfft bins, coordinate k*df
@@ -157,20 +160,28 @@ class MisfitSetup:
             np.float32
         )
         self.has_filter[irc] = True
+        self.filter_plfs[irc] = filt
 
-    def to(self, device):
+    def to(self, device, method=None):
         """The misfit context as tensors on `device`.
 
         Amplitude normalization: every norm runs on ref/s0 and
         syn_factor/s0, and the eval multiplies the 1-homogeneous outputs
         back by s0.  Without it a moment-1.0 source (samples ~1e-19) has
         squares ~1e-38, which flush to zero in float32.  `amp_scale` stays a
-        Python float (it multiplies host-side into the outputs)."""
+        Python float (it multiplies host-side into the outputs).
+
+        The amplitude-spectrum norms (`method` in AMPSPEC) run on
+        amp_grid's extended grid (every pair's centred pow2 window lies
+        inside it, see ampspec_pair_misfits), so for them the tapers and
+        filters are evaluated there too: amp_taper_w f32[RC, 4P] and
+        amp_filter_w f32[RC, 2P + 1], P = next_pow2(pl).  Other methods'
+        contexts leave them out."""
         s0 = float(np.abs(self.ref).max())
         if not np.isfinite(s0) or s0 == 0.0:
             s0 = 1.0
         t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-        return {
+        ctx = {
             "amp_scale": s0,
             "ref": t(self.ref / np.float32(s0)),
             "ref_lo": t(self.ref_lo),
@@ -188,6 +199,23 @@ class MisfitSetup:
             "shift_lo": t(self.shift_lo),
             "shift_hi": t(self.shift_hi),
         }
+        if method in AMPSPEC:
+            ctx.update({k: t(v) for k, v in self._amp_weights().items()})
+        return ctx
+
+    def _amp_weights(self):
+        """The tapers and filters on amp_grid's extended grid (host arrays)."""
+        ps0, pl, dt = self.static.ps0, self.static.pl, self.static.dt
+        aps0, apl, _ncap = amp_grid(ps0, pl)
+        anf = apl // 2 + 1
+        adf = 1.0 / (apl * dt)
+        amp_taper_w = np.ones((self.nrc, apl), dtype=np.float32)
+        for irc, plf in self.taper_plfs.items():
+            amp_taper_w[irc] = plf.taper_weights((aps0, aps0 + apl - 1), dt, ip="cos")
+        amp_filter_w = np.ones((self.nrc, anf), dtype=np.float32)
+        for irc, plf in self.filter_plfs.items():
+            amp_filter_w[irc] = plf.taper_weights((0, anf - 1), adf, ip="cos")
+        return {"amp_taper_w": amp_taper_w, "amp_filter_w": amp_filter_w}
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +235,14 @@ def place_on_probe(values, it0, st: ProbeStatic):
 def shift_probe(arr, lo, hi, s, st: ProbeStatic):
     """probe_shift: move the data span of every row by s samples,
     re-extending (comparator.f90:273-288).  arr f32[RC, PL]; lo/hi the
-    absolute data spans."""
+    absolute data spans; s an int, or an int tensor [S, 1, 1] of shifts
+    (then f32[S, RC, PL])."""
     rel = torch.arange(st.pl, device=arr.device)[None, :] - s
     lo_rel = lo[:, None].long() - st.ps0
     hi_rel = hi[:, None].long() - st.ps0
     relc = torch.minimum(torch.maximum(rel, lo_rel), hi_rel)  # edge extension
-    v = torch.gather(arr, -1, relc.expand(arr.shape))
+    shape = torch.broadcast_shapes(relc.shape, arr.shape)
+    v = torch.gather(arr.expand(shape), -1, relc.expand(shape))
     return torch.where(rel < lo_rel, 0.0, v)
 
 
@@ -235,6 +265,16 @@ def processed_arrays(ctx, arr, st: ProbeStatic, use_fft=True):
                            filtered * ctx["taper_zero_one"], filtered)
     filtered = torch.where(ctx["has_filter"][..., None], filtered, tapered)
     return tapered, filtered
+
+
+def amp_spectra(ctx, tapered):
+    """(amp, amp_filtered) per row from the tapered rows: |rfft| and the
+    same under the row's spectral PLF filter (processed_arrays' spectral
+    outputs in the JAX package; kept apart so no time-domain path computes
+    them)."""
+    amp = torch.abs(torch.fft.rfft(tapered, dim=-1)).to(F32)
+    ampf = torch.where(ctx["has_filter"][..., None], amp * ctx["filter_w"], amp)
+    return amp, ampf
 
 
 def _span_mask(lo, hi, st: ProbeStatic):
@@ -331,6 +371,105 @@ def pair_norms(ctx, ref_arr, syn_arr, mask, method, st: ProbeStatic):
     return m, n
 
 
+def _next_pow2_i32(x):
+    """Next power of two of positive int32 tensors by bit smearing: exact on
+    powers of two (no float log2), 1 for x <= 1."""
+    y = torch.clamp(x.to(I32), min=1) - 1
+    for k in (1, 2, 4, 8, 16):
+        y = y | (y >> k)
+    return y + 1
+
+
+def amp_grid(ps0, pl):
+    """Extended-grid geometry (aps0, apl, ntrans_cap) of the exact per-pair
+    amplitude-spectrum norms.
+
+    With P = next_pow2(pl): apl = 4P, so every pow2 pair length up to the
+    cap 2P divides apl (pair bins coincide with grid bins at stride
+    apl // ntrans), and the margins ((4P - pl) // 2 >= 1.5P per side)
+    contain the worst centred window: data spans live within the probe
+    +- the fold widening (<= P/2 in any physical plan, the probe being sized
+    to 2x the longest content), so ntrans <= next_pow2(pl + 4*fold) <= 2P
+    and the centred window overhangs the union span by at most P per side.
+    A 2x grid does NOT contain pairs longer than pl/2 placed off centre:
+    their repeat-right content is truncated (2.7e-2 norm error measured on
+    a right-aligned fold-widened span in the JAX package)."""
+    p2 = 1 << (int(pl) - 1).bit_length()
+    apl = 4 * p2
+    return ps0 - (apl - pl) // 2, apl, 2 * p2
+
+
+def ampspec_pair_misfits(ctx, syn, syn_lo, syn_hi, method, st: ProbeStatic):
+    """Exact per-pair amplitude-spectrum misfits and reference norm factors,
+    batched over the leading axes of syn.
+
+    The reference grows each (ref, syn) probe pair onto its own pow2 span
+    (probes_adjust_spans, comparator.f90:464-486: ntrans =
+    next_pow2(max(len(union of the data spans), 2*max(len_ref, len_syn))),
+    centred on the union), FFTs the tapered (else the raw zero-left /
+    repeat-right) content over that span (update_spectrum,
+    comparator.f90:1186-1215) and integrates with df = 1/(ntrans*dt).  The
+    engine's probes share ONE span, so this rebuilds the per-pair semantics
+    on amp_grid's extended grid: a signal supported on one ntrans-long
+    window folds into period ntrans as a circular shift, so |FFT_apl(x *
+    pairmask)| at stride apl // ntrans is the pair's own |FFT_ntrans|, and
+    pair bin k' sits at extended bin k' * stride, where amp_filter_w holds
+    the PLF filter.
+
+    syn: probe-placed synthetics f32[..., RC, PL] (moment applied,
+    untapered); syn_lo/syn_hi int[..., RC] absolute data spans.  Returns
+    (misfit, norm) shaped like syn_lo, on ctx's normalized amplitudes.
+    Right of syn_hi the rows hold the raw accumulation (usually zero) where
+    the reference repeats the strip's last sample: the end-repeat
+    regularization of the time-domain path (tests/test_golden_oracle.py);
+    tapered rows are unaffected."""
+    ps0, pl, dt = st.ps0, st.pl, st.dt
+    aps0, apl, ncap = amp_grid(ps0, pl)
+    dev = syn.device
+    ref_lo, ref_hi = ctx["ref_lo"], ctx["ref_hi"]
+
+    # per-pair span (probes_adjust_spans + allowed_span)
+    u_lo = torch.minimum(ref_lo, syn_lo)
+    u_hi = torch.maximum(ref_hi, syn_hi)
+    ulen = u_hi - u_lo + 1
+    minlen = 2 * torch.maximum(ref_hi - ref_lo + 1, syn_hi - syn_lo + 1)
+    ntrans = torch.clamp(_next_pow2_i32(torch.maximum(ulen, minlen)), max=ncap)
+    pair_lo = u_lo - torch.div(ntrans - ulen, 2, rounding_mode="floor")
+
+    j = aps0 + torch.arange(apl, device=dev)  # absolute extended-grid indices
+    rel = j - ps0
+    relc = rel.clamp(0, pl - 1)
+
+    def tapered_ext(arr):
+        # the probe content on the extended grid: zeros left of the probe
+        # span, its (repeat-right) last value beyond; then the taper
+        ext = torch.where(rel < 0, 0.0, arr.index_select(-1, relc))
+        return torch.where(ctx["has_taper"][..., None], ext * ctx["amp_taper_w"], ext)
+
+    pmask = (j >= pair_lo[..., None]) & (j <= (pair_lo + ntrans - 1)[..., None])
+    amp_r = torch.abs(torch.fft.rfft(tapered_ext(ctx["ref"]) * pmask, dim=-1)).to(F32)
+    amp_s = torch.abs(torch.fft.rfft(tapered_ext(syn) * pmask, dim=-1)).to(F32)
+    use_f = ctx["has_filter"][..., None]
+    amp_r = torch.where(use_f, amp_r * ctx["amp_filter_w"], amp_r)
+    amp_s = torch.where(use_f, amp_s * ctx["amp_filter_w"], amp_s)
+
+    # pair bins = extended bins at stride apl // ntrans; df of the pair span
+    k = torch.arange(apl // 2 + 1, device=dev)
+    stride = torch.div(apl, ntrans, rounding_mode="floor")
+    binmask = (k % stride[..., None]) == 0
+    df = 1.0 / (ntrans.to(F32) * np.float32(dt))
+    diff = amp_r - ctx["syn_factor"][..., None] * amp_s
+    if method == AMPSPEC_L2NORM:
+        m = gsqrt(df * torch.sum(diff * diff * binmask, dim=-1))
+        n = torch.sqrt(df * torch.sum(amp_r * amp_r * binmask, dim=-1))
+    elif method == AMPSPEC_L1NORM:
+        m = df * torch.sum(torch.abs(diff) * binmask, dim=-1)
+        n = df * torch.sum(torch.abs(amp_r) * binmask, dim=-1)
+    else:
+        raise ValueError(f"unsupported frequency-domain method {method}")
+    return m, n
+
+
 def ref_norm_spans(ctx, shift=0):
     """Span of the reference-only norm factor (probe_norm_timedomain,
     comparator.f90:824-859): the taper span if defined, else the ref data
@@ -361,7 +500,10 @@ def precompute_ref_context(ctx, method, st: ProbeStatic, shiftrange=(0, 0),
     ref_proc f32[S, RC, PL], the shifted data spans, and the reference norm
     factors (averaged over each row's allowed shifts).  For a time-domain
     norm: the processed reference ref_proc f32[RC, PL] and its norm
-    factors."""
+    factors.  An amplitude-spectrum norm has none (its windows and norm
+    factors depend on each synthetic's span: ampspec_pair_misfits)."""
+    if method in AMPSPEC:
+        return {"method": method}
     if method in TIME_DOMAIN:
         tap_r, filt_r = processed_arrays(ctx, ctx["ref"], st, use_fft=any_filter)
         ref_proc = torch.where(ctx["has_filter"][..., None], filt_r, tap_r)
@@ -370,7 +512,7 @@ def precompute_ref_context(ctx, method, st: ProbeStatic, shiftrange=(0, 0),
         return {"method": method, "ref_proc": ref_proc,
                 "norm": torch.where(ctx["enabled"], norm, 0.0)}
     if method not in FLOATING:
-        raise NotImplementedError(_TODO_SPECTRAL)
+        raise ValueError(f"unknown misfit method {method}")
     base = L2NORM if method == FLOATING_L2NORM else L1NORM
     s1, s2 = int(shiftrange[0]), int(shiftrange[1])
     dev = ctx["ref"].device
@@ -627,20 +769,25 @@ def evaluate_misfits(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st: ProbeSt
     evaluate_misfits (which the JAX engine vmaps over sources) for the
     floating and the time-domain norms, batched over B.  It runs the probe
     chain (taper -> rfft -> PLF filter -> irfft) on every synthetic, so it
-    serves the filtered floating plans the scan kernel cannot take and every
-    time-domain plan; the JAX package has no kernel for either.  Floating
-    norms are chunked over B so that the [S, b, RC, W] difference block
-    stays under `chunk_elems` elements.
+    serves the filtered floating plans the scan kernel cannot take, every
+    time-domain plan and the amplitude-spectrum norms (on the raw probes:
+    ampspec_pair_misfits); the JAX package has no kernel for any of them.
+    Floating norms are chunked over B so that the [S, b, RC, W] difference
+    block stays under `chunk_elems` elements.
 
     Arguments as evaluate_misfits_floating_batch.  Returns (m [B, RC],
-    norm [B, RC], floating_shift [B, R]); the time-domain norms shift
-    nothing (zeros).
+    norm [B, RC], floating_shift [B, R]); the time-domain and spectral
+    norms shift nothing (zeros).
     """
-    if rctx is None:
-        raise NotImplementedError(_TODO_SPECTRAL)
     syn, syn_lo_b, syn_hi_b = _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b,
                                              syn_hi_b, st, moments, risetimes,
                                              fold_nshift_max)
+    if rctx["method"] in AMPSPEC:
+        m, n = ampspec_pair_misfits(ctx, syn, syn_lo_b, syn_hi_b, rctx["method"], st)
+        s0 = ctx["amp_scale"]
+        m = torch.where(ctx["enabled"], m, 0.0) * s0
+        n = torch.where(ctx["enabled"], n, 0.0) * s0
+        return m, n, torch.zeros((m.shape[0], nrec), dtype=I32, device=m.device)
     tap_s, filt_s = processed_arrays(ctx, syn, st, use_fft=any_filter)
     syn_proc = torch.where(ctx["has_filter"][:, None], filt_s, tap_s)  # [B, RC, PL]
 
@@ -708,3 +855,78 @@ def global_misfit(misfits, norms):
     m = m / a_s
     n = n / a_s
     return torch.sqrt(torch.sum(m * m, dim=-1)) / torch.sqrt(torch.sum(n * n, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# diagnostics
+# ---------------------------------------------------------------------------
+
+
+def cross_correlation(ctx, syn, shiftrange, st: ProbeStatic):
+    """Windowed cross correlation: scalar products of the processed
+    synthetics syn f32[RC, PL] (probe-placed) against the processed
+    reference shifted through shiftrange (probes_windowed_cross_corr,
+    comparator.f90:1061-1090), all shifts at once.  Returns f32[S, RC].
+
+    ctx holds ref/s0 and syn_factor/s0 (MisfitSetup.to); the scalar product
+    is 2-homogeneous, so s0 comes back as chained multiplies (m * s0) * s0:
+    a bare s0 * s0 flushes to zero in float32 at s0 ~ 1e-19."""
+    s1, s2 = int(shiftrange[0]), int(shiftrange[1])
+    shifts = torch.arange(s1, s2 + 1, device=syn.device)
+    ref_s = shift_probe(ctx["ref"], ctx["ref_lo"], ctx["ref_hi"], shifts[:, None, None], st)
+    tap_r, filt_r = processed_arrays(ctx, ref_s, st)
+    ref_proc = torch.where(ctx["has_filter"][..., None], filt_r, tap_r)  # [S, RC, PL]
+    tap_s, filt_s = processed_arrays(ctx, syn, st)
+    syn_proc = torch.where(ctx["has_filter"][..., None], filt_s, tap_s)  # [RC, PL]
+    # norm_spans with the synthetic spanning the whole probe
+    ref_lo = ctx["ref_lo"][None, :] + shifts[:, None]
+    ref_hi = ctx["ref_hi"][None, :] + shifts[:, None]
+    lo = torch.where(ctx["has_taper"], ctx["taper_lo"], torch.clamp(ref_lo, max=st.ps0))
+    hi = torch.where(ctx["has_taper"], ctx["taper_hi"],
+                     torch.clamp(ref_hi, min=st.ps0 + st.pl - 1))
+    m, _ = pair_norms(ctx, syn_proc, ref_proc, _span_mask(lo, hi, st), SCALAR_PRODUCT, st)
+    s0 = ctx["amp_scale"]
+    return m * s0 * s0
+
+
+def _first_differences(rows, order):
+    """First (order 1: x[k] - x[k+1]) or second (x[k] - 2 x[k+1] + x[k+2])
+    differences along the last axis, float64."""
+    rows = rows.to(torch.float64)
+    if order == 1:
+        return rows[..., :-1] - rows[..., 1:]
+    return rows[..., :-2] - 2.0 * rows[..., 1:-1] + rows[..., 2:]
+
+
+def _max_scale(d):
+    """The largest |d| per group [..., 1, 1] (1 where it is 0)."""
+    a = torch.abs(d).amax(dim=(-2, -1), keepdim=True)
+    return a, torch.where(a == 0.0, 1.0, a)
+
+
+def peak_amplitude(syn_rows, mask, differentiate, st: ProbeStatic):
+    """max |d^k u/dt^k| vector norm over grouped components
+    (max_vecnorm_d1/d2, comparator.f90:519-589), float64.  syn_rows
+    f32[..., G, PL]: the groups' component rows; mask [..., PL] applies to
+    the first sample of each finite difference.  Returns [...].  The
+    differences are max-scaled per group before squaring, as in the JAX
+    package."""
+    d = _first_differences(syn_rows, differentiate)
+    dmask = mask[..., : d.shape[-1]]
+    a, a_s = _max_scale(d)
+    power = torch.sum((d / a_s) ** 2, dim=-2)
+    root = a[..., 0, 0] * gsqrt(torch.amax(power * dmask, dim=-1))
+    dt = float(st.dt)
+    return root / (dt if differentiate == 1 else dt**2)
+
+
+def arias_intensity(syn_rows, mask, st: ProbeStatic):
+    """pi/(2g) * dt * the summed squared second differences / dt^2
+    (arias_intensity_*, comparator.f90:591-625), float64; shapes as
+    peak_amplitude's."""
+    d = _first_differences(syn_rows, 2)
+    a, a_s = _max_scale(d)
+    total = (a[..., 0, 0] * a[..., 0, 0]) * torch.sum(
+        torch.sum((d / a_s) ** 2, dim=-2) * mask[..., :-2], dim=-1)
+    dt = float(st.dt)
+    return np.pi / (2.0 * 9.81) * dt * total / dt**2

@@ -63,9 +63,16 @@ def pack_ext(ext, cfg):
 
 def strides(cfg):
     """Neighbour node strides (s1, s2, s3) = (zu, xu*nzw, xu*nzw + zu) of
-    the +zu, +xu and +xu+zu bilinear neighbours, host ints."""
-    zu = cfg.zunder if cfg.interpolate else 1
-    xu = cfg.xunder if cfg.interpolate else 1
+    the +zu, +xu and +xu+zu bilinear neighbours, host ints.  A
+    nearest-neighbour session weighs the three neighbours 0 exactly, so
+    they point at the node itself (0, 0, 0): the blend then reads no other
+    node's rows, and a non-finite GF row beside the nearest node (or, at
+    the window's last depth, the next column's first one) cannot turn 0 x
+    NaN into the output, as one node read alone (kiwi_tpu's XLA path) would
+    not."""
+    if not cfg.interpolate:
+        return 0, 0, 0
+    zu, xu = cfg.zunder, cfg.xunder
     return zu, xu * cfg.nzw, xu * cfg.nzw + zu
 
 
@@ -76,7 +83,7 @@ def pack_kinematics(cfg, kin, G):
 
     node_rows i32[B, R, P]: each group's bilinear-origin node, clamped so
         that node + s3 stays inside the window (invalid centroids carry zero
-        weights but still read rows);
+        moment weights: they read rows, and the blend drops their terms);
     kk i32[B, P, G]: slice starts, clipped to [0, nt_ext - nt_out - 1].  The
         integer shift derives from the centroid time alone, so receiver 0's
         stands for all receivers, as in the JAX package;
@@ -193,7 +200,12 @@ def window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out,
     """The same function in plain torch, chunked over B so that the
     [b, R, P, G, 3, nt_ext] channel block stays near `chunk_elems` elements
     (the unchunked block at B = 256 of the finite benchmark is ~0.6 GB).
-    The 2-tap shift applies after the contraction, as in the TPU kernel."""
+    The 2-tap shift applies after the contraction, as in the TPU kernel.
+    A centroid whose f1..f6 are all 0 (an invalid one) adds exact zeros,
+    as the CUDA kernel skips it: a non-finite row its stencil reads (at the
+    window's last depth, the next column's first row) does not reach the
+    output (kiwi_tpu's XLA path clips the stencil to the column and reads no
+    such row)."""
     _N, ng, nt_ext = ext.shape
     B, R, P = node_rows.shape
     G = kk.shape[2]
@@ -224,7 +236,8 @@ def window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out,
         fr0 = w[..., 8, :, None]  # [b, R, P, G, 1, 1]
         fr1 = w[..., 9, :, None]
         y = fr0 * torch.gather(x, -1, idx + 1) + fr1 * torch.gather(x, -1, idx)
-        out[b0:b0 + step] = y.sum(dim=(2, 3))
+        live = (w[..., :6, 0] != 0).any(-1)  # [b, R, P, G]
+        out[b0:b0 + step] = torch.where(live[..., None, None], y, 0.0).sum(dim=(2, 3))
     return out
 
 

@@ -215,6 +215,48 @@ def test_window_kernel_tiles_match_plain(cuda_dev, B, bt, layout):
     assert err <= 1e-5, err
 
 
+def test_window_kernel_nearest_neighbour_strides(cuda_dev):
+    """Strides (0, 0, 0) (nearest-neighbour plans, synth_window.strides):
+    the kernel reads the node alone; NaN rows at every other node do not
+    reach the output, which matches the plain version."""
+    rng = np.random.default_rng(11)
+    args = _window_operands(rng, 10, 3, 104, 80, 37, 1, cuda_dev)
+    ext, node_rows = args[0].clone(), args[1]
+    unused = torch.ones(ext.shape[0], dtype=torch.bool, device=cuda_dev)
+    unused[node_rows.flatten().long()] = False
+    ext[unused] = float("nan")
+    wsp = torch.zeros_like(args[5])
+    wsp[..., 0] = 1.0
+    ops = (ext, node_rows, (0, 0, 0), args[3], args[4], wsp, 80)
+    got = synth_window.window_forward(*ops)
+    want = synth_window.window_forward_reference(*ops)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= 1e-5, err
+
+
+def test_window_kernel_dead_groups_read_nan(cuda_dev):
+    """Bilinear strides: NaN rows at every node that no live centroid's
+    stencil reads (what an invalid centroid at the window's last depth
+    reads in the next column) reach neither the kernel's output nor the
+    plain version's, and the two agree."""
+    rng = np.random.default_rng(12)
+    args = _window_operands(rng, 10, 3, 104, 80, 37, 1, cuda_dev, "empty")
+    ext, node_rows, s, wrows = args[0].clone(), args[1], args[2], args[4]
+    live = (wrows[..., :6] != 0).any(-1)  # [B, R, P, G]
+    unused = torch.ones(ext.shape[0], dtype=torch.bool, device=cuda_dev)
+    for o in (0,) + tuple(s):
+        unused[node_rows[live.any(-1)].long() + o] = False
+    assert unused[node_rows[~live.any(-1)].long()].any()
+    ext[unused] = float("nan")
+    ops = (ext, node_rows, s, args[3], wrows, args[5], 80)
+    got = synth_window.window_forward(*ops)
+    want = synth_window.window_forward_reference(*ops)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= 1e-5, err
+
+
 def _scan_operands(rng, S, RC, B, W, layout, dev, scale):
     """ref [S*RC, W] and syn [RC, B, W]: contiguous, or the finite caller's
     views of [S, RC, PL] and [B, RC, PL] probes, sliced at i0 (`any_offset`:

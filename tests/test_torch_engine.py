@@ -135,16 +135,25 @@ def test_memo_key_has_effective_dt(engines):
 
 
 def test_outside_the_slice_raises(engines):
-    """The spectral norms are not ported yet and raise naming their
-    ROADMAP.md item (queue 1, item 4); an unknown source type raises naming the ported ones
-    (finite faults, the time-domain norms and the eikonal sources are ported
-    now: tests/test_torch_finite.py, tests/test_torch_eikonal.py)."""
-    _je, te = engines
-    _configure(te, "ampspec_l2norm")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        te.sweep_global_misfits(BASE, 5, STRIKES)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        te.misfits_for_source_batch(np.tile(BASE, (2, 1)))
+    """The spectral norms are ported now (they raised before): the point
+    sweep and a batch under ampspec_l2norm answer as kiwi_tpu does, through
+    the batch path (the fused kernel is floating-only;
+    tests/test_torch_spectral.py holds the rest).  An unknown source type
+    still raises naming the ported ones."""
+    je, te = engines
+    for eng in engines:
+        _configure(eng, "ampspec_l2norm")
+    got = te.sweep_global_misfits(BASE, 5, STRIKES)
+    assert not te._plan["use_fused_scan"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(je.sweep_global_misfits(BASE, 5, STRIKES)),
+                               rtol=2e-5)
+    pb = np.tile(BASE, (2, 1))
+    pb[1, 5] = 120.0
+    m, n, _fs = te.misfits_for_source_batch(pb)
+    wm, wn, _wfs = je.misfits_for_source_batch(pb)
+    for a, b in ((m, wm), (n, wn)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-5 * np.abs(b).max())
     with pytest.raises(KeyError, match="eikonal"):
         te.set_source_params("no_such_source", np.zeros(7, np.float32))
 
@@ -299,9 +308,13 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kiwi_tpu'))\n"
         "assert not bad, bad\n"
+        "new = ('cli.minimizer', 'io', 'io.mseed', 'io.sac', 'io.table', 'io.gfdb_hdf5',\n"
+        "       'native', 'dataset', 'gf.interpolation')\n"
+        "missing = [m for m in new if 'kiwi_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('kiwi_tpu_torch')]))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout) >= 21
+    assert int(r.stdout) >= 32

@@ -27,8 +27,9 @@ TAPER = ([0.0, 1.0, 6.0, 9.0], [0.0, 1.0, 1.0, 0.0])
 BAND = ([0.0, 0.2, 3.0, 4.0], [0.0, 1.0, 1.0, 0.0])
 
 
-def _setups(taper, filt, seed=0, amp=1.0):
-    """The same misfit setup built in both packages."""
+def _setups(taper, filt, seed=0, amp=1.0, method=None):
+    """The same misfit setup built in both packages (the port's context
+    for `method`)."""
     rng = np.random.default_rng(seed)
     rids = np.repeat(np.arange(NREC), K)
     out = []
@@ -51,7 +52,7 @@ def _setups(taper, filt, seed=0, amp=1.0):
         s.shift_hi[K:] = 2
         s.enabled[1] = False
     (_, jst, jsetup, _), (_, tst, tsetup, _) = out
-    return jst, jsetup.device(), tst, tsetup.to("cpu")
+    return jst, jsetup.device(), tst, tsetup.to("cpu", method)
 
 
 def _close(got, want, rel):
@@ -249,7 +250,18 @@ def test_time_domain_eval_matches(taper, filt, fold, amp, method):
 
 
 def test_spectral_norms_raise():
-    jst, jctx, tst, tctx = _setups(False, False)
+    """The spectral norms are ported: like kiwi_tpu's (an empty context),
+    their reference context holds no reference arrays (the per-pair spectra
+    depend on each synthetic's span: tests/test_torch_spectral.py), and
+    their extended-grid tapers and filters match (a time-domain context
+    carries none); an unknown method raises ValueError."""
+    assert not {"amp_taper_w", "amp_filter_w"} & set(_setups(True, True)[3])
+    jst, jctx, tst, tctx = _setups(True, True, method=tmf.AMPSPEC_L1NORM)
     for method in (tmf.AMPSPEC_L2NORM, tmf.AMPSPEC_L1NORM):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            tmf.precompute_ref_context(tctx, method, tst)
+        assert tmf.precompute_ref_context(tctx, method, tst) == {"method": method}
+        want = jmf.precompute_ref_context(jctx, method, jst)
+        assert set(want) == {"method"}
+    for key in ("amp_taper_w", "amp_filter_w"):
+        np.testing.assert_array_equal(tctx[key].numpy(), np.asarray(jctx[key]))
+    with pytest.raises(ValueError, match="unknown misfit method"):
+        tmf.precompute_ref_context(tctx, 99, tst)

@@ -273,3 +273,72 @@ def test_empty_groups_contribute_exact_zeros(ng, G, under):
     got = tsw.window_forward(ext, moved, tsw.strides(cfg), kk, wrows, other_wsp, nt_out)
     assert torch.equal(got, want)
     assert not got[1, 2].any()
+
+
+@pytest.mark.parametrize("ng,G", [(10, 3), (8, 1)])
+def test_dead_centroids_read_no_nonfinite_rows(ng, G):
+    """Bilinear plans: an invalid centroid at the window's last depth
+    points its stencil's +zu nodes at the next column's first row.  Its
+    moment weights are 0, and the plain version drops its terms as the
+    kernel skips them, so NaN rows wherever no live centroid reads (such
+    rows included) leave the output finite and equal to the one without
+    them (the CUDA side: tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(5 * ng + G)
+    nxw, nzw, s_len, nt_out = 6, 4, 24, 64
+    cfg = ts.SynthConfig(dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0, ng=ng, nt=200,
+                         ix0=0, nxw=nxw, iz0=0, nzw=nzw, out_it0=20, nt_out=nt_out, s_base=-6,
+                         s_len=s_len, interpolate=True, xunder=1, zunder=1)
+    s = tsw.strides(cfg)
+    B, R, P = 2, 3, 6
+    kin = _synthetic_kin(rng, cfg, B, R, G, P)
+    dead = rng.uniform(size=(B, R, P)) < 0.5
+    dead[0, 0, 0] = True
+    kin["izs"][..., 0] = np.where(np.repeat(dead, G, axis=2), nzw - 1, kin["izs"][..., 0])
+    kin["ixs"][..., 0] %= 2  # live centroids read columns 0-2 only
+    kin["ixs"][0, 0, :G, 0] = 3  # the +zu node is column 4's first row
+    kin["valid"] &= ~np.repeat(dead, G, axis=2)
+    data = rng.standard_normal((nxw * nzw, ng, nt_out + s_len)).astype(np.float32)
+    node_rows, kk, wrows, wsp = tsw.pack_kinematics(
+        cfg, {k: torch.as_tensor(v) for k, v in kin.items()}, G)
+    live = (wrows[..., :6] != 0).any(-1).any(-1)  # [B, R, P]
+    reads = lambda sel: {int(n) + o for n in node_rows[sel].tolist() for o in (0,) + s}  # noqa: E731
+    used = reads(live)
+    assert 4 * nzw in reads(~live) - used  # a dead centroid reads a NaN row
+    poisoned = data.copy()
+    poisoned[[n for n in range(nxw * nzw) if n not in used]] = np.nan
+    want = tsw.window_forward(torch.as_tensor(data), node_rows, s, kk, wrows, wsp, nt_out)
+    got = tsw.window_forward(torch.as_tensor(poisoned), node_rows, s, kk, wrows, wsp, nt_out)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ng", [8, 10])
+def test_nearest_neighbour_reads_one_node(ng):
+    """A nearest-neighbour plan weighs the stencil's other three nodes 0:
+    they point at the node itself, so NaN rows in the neighbouring nodes
+    (here the next depth, the next column, and the next column's first row
+    seen from the window's last depth) leave the output finite and equal
+    to the one without them, as one node read alone gives it."""
+    rng = np.random.default_rng(ng)
+    nxw, nzw, s_len, nt_out = 6, 4, 24, 64
+    cfg = ts.SynthConfig(dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0, ng=ng, nt=200,
+                         ix0=0, nxw=nxw, iz0=0, nzw=nzw, out_it0=20, nt_out=nt_out, s_base=-6,
+                         s_len=s_len, interpolate=False)
+    assert tsw.strides(cfg) == (0, 0, 0)
+    assert tsw.strides(dataclasses.replace(cfg, interpolate=True)) == (1, nzw, nzw + 1)
+    B, R, P, G = 2, 3, 4, 1
+    kin = _synthetic_kin(rng, dataclasses.replace(cfg, xunder=1, zunder=1), B, R, G, P)
+    kin["ixs"][..., 0] = rng.integers(0, nxw - 1, size=(B, R, P))
+    kin["izs"][..., 0] = np.where(rng.uniform(size=(B, R, P)) < 0.5, nzw - 1, 1)
+    kin["wsp"][:] = (1.0, 0.0, 0.0, 0.0)
+    kin["valid"][:] = True
+    data = rng.standard_normal((nxw, nzw, ng, nt_out + s_len)).astype(np.float32)
+    node_rows, kk, wrows, wsp = tsw.pack_kinematics(
+        cfg, {k: torch.as_tensor(v) for k, v in kin.items()}, G)
+    used = set(node_rows.flatten().tolist())
+    poisoned = data.reshape(nxw * nzw, ng, -1).copy()
+    poisoned[[n for n in range(nxw * nzw) if n not in used]] = np.nan
+    want = tsw.window_forward(tsw.pack_ext(torch.as_tensor(data), cfg), node_rows,
+                              tsw.strides(cfg), kk, wrows, wsp, nt_out)
+    got = tsw.window_forward(torch.as_tensor(poisoned), node_rows, tsw.strides(cfg), kk,
+                             wrows, wsp, nt_out)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
