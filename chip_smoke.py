@@ -5,9 +5,10 @@ Drives kiwi_tpu_torch's main paths at full size on the card -- the
 kiwibench point sweep (bench.py's bench_point / bench_point_filtered
 configuration), the finite-source batches (bench.py's bench_finite, and
 the same with a band-pass) and the eikonal-rupture grid search (bench.py's
-bench_eikonal), then a grid search and a Levenberg-Marquardt inversion on
-the finite session, then the minimizer text protocol replaying
-benchmark/mini.inp -- and fails on the first phase that goes wrong:
+bench_eikonal), then a grid search, a Levenberg-Marquardt inversion and
+gradient inversion on the finite session, a plan outside the window
+kernel, then the minimizer text protocol replaying benchmark/mini.inp --
+and fails on the first phase that goes wrong:
 
 1. build the CUDA kernels from kiwi_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc process per source, all started together;
@@ -59,9 +60,22 @@ benchmark/mini.inp -- and fails on the first phase that goes wrong:
    Levenberg-Marquardt refinement under l2norm (Engine.minimize_lm with
    time, strike, dip and slip-rake free, from (+0.05 s, +5, -4, +6 degrees)
    off the truth; strike, dip and slip-rake within 0.5 degrees of it and a
-   global misfit under 0.02; nfev/s and the plans the engine built); the
+   global misfit under 0.02; nfev/s and the plans the engine built);
+   gradient inversion on the same session (l2norm), where no kernel may
+   launch: Engine.global_misfits_and_grad on 64 rows around the truth,
+   misfit_jacobian and invert.covariance (symmetric, positive diagonal) at
+   LM's start with strike, dip and slip-rake free, and invert.
+   minimize_gradient from (+5, -4, +6 degrees) off the truth, 8 starts
+   (spread 0.1), 150 steps, lr 0.03: the best global misfit under 0.25 x
+   the start's and each angle within 3 degrees of the truth
+   (tests/test_gradient.py's bars), steps/s; a plan outside the window
+   kernel (item 8 of ROADMAP.md's queue 1): the finite session on a 2 ms
+   analytic store (nt_out + s_len above T_MAX = 2048), floating_l1norm
+   over +-0.1 s, 32 strikes through global_misfits_for_source_batch: the
+   plan's formulation "plain", scan_sums launched, no window kernel, the
+   best strike the truth; every other configuration's plan "window"; the
    window and scan kernels then held against their plain versions, as in
-   4, on the operands these runs gave them: the grid's last full chunk
+   4, on the operands these runs gave them (the long window's scan too): the grid's last full chunk
    (512 models) and its ragged last one (440), LM's last Jacobian call (4
    rows, the source-tile instance) and its closing get_global_misfit (one
    row, the direct instance); then the minimizer text protocol
@@ -73,9 +87,10 @@ benchmark/mini.inp -- and fails on the first phase that goes wrong:
    from MiniSEED files through the native codec, which must have built;
    floating_l1norm, then ampspec_l2norm and ampspec_l1norm under the
    band-pass; peak amplitudes, Arias intensities, spectra, cross
-   correlations, autoshift) and MINI_LM (LM from the lm phase's offsets,
-   which must recover the truth as there); no command may answer nok but
-   minimize_gradient; the window and scan kernels held against their plain
+   correlations, autoshift), MINI_LM (LM from the lm phase's offsets,
+   which must recover the truth as there) and MINI_GRADIENT
+   (minimize_gradient 20 0.02 2 from LM's end); no command may answer
+   nok; the window and scan kernels held against their plain
    versions on the operands of MINI_SESSION's and of MINI_LM's calls, the
    last call of each shape (LM's 4-row Jacobian calls through the
    source-tile instance at the protocol's 11 receivers among them);
@@ -85,14 +100,20 @@ benchmark/mini.inp -- and fails on the first phase that goes wrong:
    relative agreement with the card (global misfits; for the finite
    batches, the grid and LM also misfits and norms; at LM's end, where the
    misfits are near 0, their difference within OPT_TOL of the largest
-   norm); the protocol session on a CPU server, answer by answer (shifts
-   exactly) and file by file, and its misfits at the card's LM end (at
-   OPT_TOL);
+   norm); the gradient phase's first 8 rows (g at 1e-5, every gradient
+   component at 1e-4 of its row's largest on minimize_multistart's scale)
+   and its Jacobian, and the long window's first 8 models (1e-5); the
+   protocol session on a CPU server, answer by answer (shifts exactly) and
+   file by file, its misfits at the card's LM end (at OPT_TOL), and
+   MINI_GRADIENT's answer from there (steps and starts exactly, the
+   misfit within 1e-5);
 8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
    eikonal calls, 2 grid computes, 2 LM runs from the start, 2 timed
-   mini.inp blocks and 1 protocol session with
+   mini.inp blocks, 1 protocol session and 2 gradient calls of 64 rows with
    torch.profiler: the device time by kernel, the device's busy time, the
-   host syncs, and for eikonal the host-side batch preparation alone.
+   host syncs, for eikonal the host-side batch preparation alone, and for
+   the gradient the backward's share of the device time and the forward's
+   device time alone.
 
 Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
@@ -164,6 +185,21 @@ MINI_OFF[[0, 5, 6, 7]] += np.array([0.1, 3.0, -2.0, 4.0], np.float32)
 MINI_LM_START = MINI_BASE.copy()
 MINI_LM_START[list(LM_FREE)] += LM_OFFSET
 MINI_RECEIVERS = 11  # benchmark/run_mini.py:48-53: `ned` at 3-4 km
+# the protocol's gradient descent, run after MINI_LM from LM's end
+MINI_GRADIENT = "minimize_gradient 20 0.02 2\n"
+# gradient inversion on the lm session: value and gradient of GRAD_B rows
+# around the truth, the misfit Jacobian and covariance at LM's start, and
+# minimize_gradient from LM's angle offsets (tests/test_gradient.py's bars)
+GRAD_B = 64
+GRAD_FREE = (5, 6, 7)  # strike, dip, slip-rake
+GRAD_OFFSET = np.array([5.0, -4.0, 6.0], np.float32)
+GRAD_STARTS, GRAD_SPREAD, GRAD_STEPS, GRAD_LR = 8, 0.1, 150, 0.03
+GRAD_TOL = 1e-4  # card vs CPU: gradient components, of the row's largest scaled one
+# plans outside the window kernel: an analytic store around the finite
+# session's source sampled at 2 ms, so that nt_out + s_len > T_MAX = 2048
+LONG_STORE = dict(nx=40, nz=26, dt=0.002, dx=100.0, dz=100.0, firstx=1500.0, firstz=3800.0)
+LONG_B = 32
+LONG_SHIFT = 0.1  # floating_l1norm over +-0.1 s: 101 trial shifts at 2 ms
 # answers compared exactly between the card and the CPU port (shifts)
 EXACT = ("set_receivers", "get_floating_shifts", "autoshift_ref_seismogram")
 SOURCES = {
@@ -918,6 +954,144 @@ def run_lm(eng, start, out):
     return nfev / seconds
 
 
+def grad_rows():
+    """GRAD_B rows around the truth (seeded): strike, dip and slip-rake
+    within a few degrees, the time within 0.05 s; one grid shape."""
+    rng = np.random.default_rng(11)
+    pb = np.tile(FINITE_BASE, (GRAD_B, 1))
+    pb[:, list(GRAD_FREE)] += rng.normal(0.0, 3.0, (GRAD_B, 3)).astype(np.float32)
+    pb[:, 0] += rng.uniform(-0.05, 0.05, GRAD_B).astype(np.float32)
+    return pb
+
+
+def grad_start():
+    p = FINITE_BASE.copy()
+    p[list(GRAD_FREE)] += GRAD_OFFSET
+    return p
+
+
+def grad_mask():
+    return np.isin(np.arange(FINITE_BASE.size), GRAD_FREE)
+
+
+def param_scale(rows):
+    """minimize_multistart's per-parameter scale: |p_j|, or 1% of
+    model.norm where p_j = 0."""
+    from kiwi_tpu_torch.sources import get_source_model
+
+    norm = get_source_model("bilateral").norm.astype(np.float64)
+    rows = np.atleast_2d(np.asarray(rows, np.float64))
+    return np.where(rows != 0.0, np.abs(rows), 0.01 * norm)
+
+
+def run_gradient(eng, out):
+    """Gradient inversion on the lm session, no kernel launched: value and
+    gradient of GRAD_B rows (one call warm, one timed), the misfit Jacobian
+    and covariance at the start, then minimize_gradient with strike, dip
+    and slip-rake free from GRAD_OFFSET off the truth, GRAD_STARTS starts;
+    the best global misfit under 0.25 x the start's and every angle within
+    3 degrees of the truth (tests/test_gradient.py's bars).  steps/s on the
+    host clock (every step ends in a copy to the host).  out["gradient"]:
+    the results, for the card-vs-CPU phase."""
+    from kiwi_tpu_torch.invert import covariance, minimize_gradient
+
+    rows = grad_rows()
+    eng.global_misfits_and_grad(rows)  # plan + first call
+    t0 = time.perf_counter()
+    g, grad = eng.global_misfits_and_grad(rows)
+    call_s = time.perf_counter() - t0
+    if g.shape != (GRAD_B,) or grad.shape != rows.shape or not (
+            np.isfinite(g).all() and np.isfinite(grad).all()):
+        fail(f"gradient: g {g.shape} / grad {grad.shape} not finite")
+    start, mask = grad_start(), grad_mask()
+    m, J = eng.misfit_jacobian(start, mask=mask)
+    cov, sigma2, _J = covariance(eng, mask=mask, params=start)
+    if not (np.isfinite(J).all() and np.allclose(cov, cov.T, rtol=1e-10, atol=0)
+            and (np.diag(cov) > 0).all()):
+        fail(f"gradient: covariance not symmetric with a positive diagonal: {cov}")
+    g0 = float(eng.global_misfits_and_grad(start[None, :])[0][0])
+    eng.set_source_params("bilateral", start)
+    t0 = time.perf_counter()
+    gm, nsteps, nstarts = minimize_gradient(eng, mask=mask, steps=GRAD_STEPS, lr=GRAD_LR,
+                                            nstarts=GRAD_STARTS, spread=GRAD_SPREAD)
+    seconds = time.perf_counter() - t0
+    p = eng.source_params.copy()
+    off = np.abs(p[list(GRAD_FREE)] - FINITE_BASE[list(GRAD_FREE)])
+    log(f"phase gradient: value and gradient of {GRAD_B} rows in {call_s:.4f} s "
+        f"({GRAD_B / call_s:.1f} rows/s); Jacobian [{J.shape[0]}, {J.shape[1]}], covariance "
+        f"diagonal {np.diag(cov)}, sigma^2 {sigma2:.4e}; minimize_gradient {nsteps} steps x "
+        f"{nstarts} starts in {seconds:.4f} s: {nsteps / seconds:.2f} steps/s, "
+        f"{nsteps * nstarts / seconds:.1f} rows x steps/s; global misfit {g0:.4e} -> {gm:.4e} "
+        f"({gm / g0:.4f} of the start); strike {p[5]:.4f}, dip {p[6]:.4f}, slip-rake "
+        f"{p[7]:.4f} (true 91, 87, 164)")
+    if not (np.isfinite(gm) and gm < 0.25 * g0 and (off < 3.0).all()):
+        fail(f"gradient: misfit {gm} not under 0.25 x {g0}, or angles off the truth by {off}")
+    out["gradient"] = {"rows": rows, "g": g, "grad": grad, "m": m, "J": J,
+                       "steps_per_s": nsteps / seconds}
+    return nsteps / seconds
+
+
+def get_long_store():
+    """The 2 ms analytic store of the long-window phase (port elseis), and
+    its build seconds."""
+    from kiwi_tpu_torch.gf import elseis
+
+    t0 = time.perf_counter()
+    store = elseis.build_ahfull_store(**LONG_STORE, material=(2300.0, 3200.0, 1600.0),
+                                      stf=KIWIBENCH_STF)
+    return store, time.perf_counter() - t0
+
+
+def make_long_engine(store, device):
+    """The finite session (10 `ned` receivers, FINITE_BASE as the reference)
+    on the 2 ms store, floating_l1norm over +-LONG_SHIFT."""
+    eng = make_session(store, device)
+    eng.set_source_params("bilateral", FINITE_BASE)
+    eng.set_synthetic_reference()
+    eng.set_floating_shiftrange(-LONG_SHIFT, LONG_SHIFT)
+    eng.set_misfit_method("floating_l1norm")
+    return eng
+
+
+def long_rows():
+    """LONG_B strikes around the truth, 1.94 degrees apart."""
+    pb = np.tile(FINITE_BASE, (LONG_B, 1))
+    pb[:, 5] = np.linspace(61.0, 121.0, LONG_B)
+    return pb
+
+
+def run_long_window(eng, out):
+    """A plan outside the window kernel: the plain synthesis, then the scan
+    kernel; the plan must say "plain" and the best strike be within 1
+    degree of the truth.  out["long_ops"]: the scan's operands."""
+    import torch
+
+    from kiwi_tpu_torch import misfit as mf
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    pb = long_rows()
+    eng.global_misfits_for_source_batch(pb)  # plan + first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = []
+    scans = capture(mf, "scan_sums", lambda: res.append(eng.global_misfits_for_source_batch(pb)))
+    seconds = time.perf_counter() - t0  # capture ends in torch.cuda.synchronize()
+    cfg = eng._plan["cfg"]
+    g = res[0].cpu().numpy()
+    best = float(pb[int(np.argmin(g)), 5])
+    log(f"phase long window: nt_out {cfg.nt_out} + s_len {cfg.s_len} = "
+        f"{cfg.nt_out + cfg.s_len} (T_MAX {sw.T_MAX}): formulation "
+        f"{eng._plan['formulation']!r}; {LONG_B} models in {seconds:.4f} s "
+        f"({LONG_B / seconds:.1f} models/s) in {len(scans)} scan call(s); best strike "
+        f"{best:.2f} (true 91)")
+    if eng._plan["formulation"] != "plain" or cfg.nt_out + cfg.s_len <= sw.T_MAX:
+        fail("long window: the plan is not outside the window kernel")
+    if not np.isfinite(g).all() or abs(best - 91.0) > 1.0:
+        fail(f"long window: misfits not finite or best strike {best} off the truth")
+    out["long_ops"] = scans
+    return LONG_B / seconds
+
+
 def bilateral(p):
     return "bilateral " + " ".join(f"{float(x):.9g}" for x in p)
 
@@ -950,7 +1124,6 @@ get_arias_intensities
 output_seismogram_spectra spec synthetics filtered
 output_cross_correlations xcorr -0.5 0.5
 autoshift_ref_seismogram 0 -0.5 0.5
-minimize_gradient
 """
 # LM on the card from a clean receiver set (no filter, references as read)
 MINI_LM = f"""set_receivers receivers.table
@@ -1017,11 +1190,12 @@ def run_protocol(out, device="cuda"):
     """benchmark/run_mini.py's replay of benchmark/mini.inp through
     kiwi_tpu_torch.cli.minimizer.MinimizerServer on the card (the first 7
     lines warm, the rest timed: mini_inp_seconds), then MINI_SESSION and
-    MINI_LM on the same server; no command may answer nok but
-    minimize_gradient, and LM must recover the truth as the lm phase does.
-    out["protocol"]: the session's answers and files, LM's end, and the
-    window and scan operands of MINI_SESSION's and MINI_LM's calls (the
-    last call of each shape of each)."""
+    MINI_LM and MINI_GRADIENT (from LM's end) on the same server; no command
+    may answer nok, and LM must recover the truth as the lm phase does.
+    out["protocol"]: the session's answers and files, LM's end, the
+    gradient descent's answer, and the window and scan operands of
+    MINI_SESSION's and MINI_LM's calls (the last call of each shape of
+    each)."""
     import torch
 
     from kiwi_tpu_torch import misfit as mf, native
@@ -1056,26 +1230,33 @@ def run_protocol(out, device="cuda"):
             window_shapes)
         return windows, scans
 
-    session, lm, ops = [], [], {}
+    session, lm, grad, ops = [], [], [], {}
     t0 = time.perf_counter()
     ops["session"] = held(MINI_SESSION, session)
     t_session = time.perf_counter() - t0
     t0 = time.perf_counter()
     ops["lm"] = held(MINI_LM, lm)
     t_lm = time.perf_counter() - t0
+    lm_end = srv.engine.source_params.copy()
+    t0 = time.perf_counter()
+    ops["gradient"] = held(MINI_GRADIENT, grad)
+    t_grad = time.perf_counter() - t0
     for part, (windows, scans) in ops.items():
         log(f"phase protocol {part}: window_forward shapes (B, R, P, G, nt_ext, nt_out) "
             f"{[window_shapes(a) for a, _kw in windows]}, scan_sums shapes (S*RC, W, RC, B, W) "
             f"{[scan_shapes(a) for a, _kw in scans]}")
-    answers += session + lm
+    answers += session + lm + grad
     noks = [(c, a) for c, ok, a in answers if not ok]
     log(f"phase protocol: session {len(session)} commands in {t_session:.4f} s, LM session "
-        f"{len(lm)} in {t_lm:.4f} s; nok: {noks}")
-    if [c for c, _a in noks] != ["minimize_gradient"]:
+        f"{len(lm)} in {t_lm:.4f} s, {MINI_GRADIENT.strip()} in {t_grad:.4f} s: "
+        f"{grad[0][2] if grad else None}; nok: {noks}")
+    if noks or len(grad) != 1:
         fail(f"protocol: commands answered nok: {noks}")
+    if any(ops["gradient"]):
+        fail("protocol: minimize_gradient called a kernel wrapper")
     res = {c: a for c, _ok, a in lm}
     info, nfev, gm = numbers(res["minimize_lm"])
-    p = srv.engine.source_params.copy()
+    p = lm_end
     log(f"phase protocol lm: info {int(info)}, nfev {int(nfev)}, global misfit {gm:.4e}; "
         f"subparams {' '.join(res['get_source_subparams'])} (true 0, 91, 87, 164)")
     off = np.abs(p[[5, 6, 7]] - MINI_BASE[[5, 6, 7]])
@@ -1083,7 +1264,8 @@ def run_protocol(out, device="cuda"):
         fail(f"protocol lm: misfit {gm}, strike/dip/slip-rake off the truth by {off}")
     torch.cuda.synchronize()
     out["protocol"] = {"session": session, "dir": work, "lm_end": p, "server": srv,
-                       "lm_misfits": numbers(res["get_misfits"]), "ops": ops}
+                       "lm_misfits": numbers(res["get_misfits"]), "ops": ops,
+                       "gradient": numbers(grad[0][2])}
     return seconds
 
 
@@ -1129,6 +1311,16 @@ def compare_protocol(prot):
     w = numbers(dict((c, a) for c, _ok, a in protocol(cpu, work, end))["get_misfits"])
     g = prot["lm_misfits"]
     compare_misfits("protocol lm end", (g[0::2], g[1::2]), (w[0::2], w[1::2]), optimum=True)
+    # the gradient descent from LM's end on both servers: steps and starts
+    # exactly, the global misfit (a ratio to the norm) within TOL of 1
+    (cmd, ok, a), = protocol(cpu, work, MINI_GRADIENT)
+    got, want = prot["gradient"], numbers(a)
+    diff = float(np.abs(got[2] - want[2]))
+    log(f"phase card-vs-cpu protocol {MINI_GRADIENT.strip()}: card {got}, CPU {want}; "
+        f"misfit diff {diff:.3e} (bar {TOL:g})")
+    if not ok or got.shape != (3,) or want.shape != (3,) or not (
+            (got[:2] == want[:2]).all() and diff <= TOL):
+        fail(f"protocol: {cmd} answers {got} on the card, {want} on the CPU")
 
 
 def compare_misfits(label, got, want, optimum=False):
@@ -1177,12 +1369,43 @@ def profile_calls(label, call, reps=5):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
+    device = sum(t for _, t in by_name.values()) / reps / 1e3
     log(f"phase profile {label}: per call {len(dev) / reps:.1f} device ops, device busy "
         f"{busy / reps / 1e3:.4f} ms (union of intervals) of {wall / reps * 1e3:.4f} ms wall "
-        f"(profiled), sum of device time {sum(t for _, t in by_name.values()) / reps / 1e3:.4f} "
-        f"ms, {syncs / reps:.1f} cudaStreamSynchronize")
+        f"(profiled; busy share {busy / 1e3 / (wall * 1e3):.4f}), sum of device time "
+        f"{device:.4f} ms, {syncs / reps:.1f} cudaStreamSynchronize")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {t / reps / 1e3:9.4f} ms  {n / reps:6.1f}x  {name[:110]}")
+    return events, device
+
+
+def profile_gradient(eng, reps=2):
+    """profile_calls over value-and-gradient calls of GRAD_B rows: the
+    backward's share of their device time (the kernels launched under the
+    autograd engine's evaluate_function ranges), then the same rows'
+    forward alone (the plain formulation under torch.no_grad()) beside it."""
+    import torch
+
+    from kiwi_tpu_torch.sources import get_source_model
+
+    rows = grad_rows()
+    events, device = profile_calls("gradient", lambda: eng.global_misfits_and_grad(rows), reps)
+    backward = 0.0
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            backward += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    backward = backward / reps / 1e3
+    model = get_source_model("bilateral")
+    plan, shape = eng._grad_plan(model, rows)
+
+    def forward():
+        with torch.no_grad():
+            eng._xla_misfits(model, plan, shape, torch.as_tensor(rows, device=eng.device))
+
+    _events, fwd = profile_calls("gradient forward only", forward, reps)
+    log(f"phase profile gradient: backward {backward:.4f} ms of {device:.4f} ms device time "
+        f"per call (share {backward / max(device, 1e-12):.4f}); the call's device time "
+        f"{device / max(fwd, 1e-12):.2f}x the forward's ({fwd:.4f} ms)")
 
 
 def profile_eikonal(eng, radii, reps=5):
@@ -1198,6 +1421,48 @@ def profile_eikonal(eng, radii, reps=5):
                              eng.eikonal_context())
     log(f"phase profile eikonal: host prepare_batch {(time.perf_counter() - t0) / reps * 1e3:.3f}"
         f" ms per call")
+
+
+def compare_gradient(grad, store):
+    """The gradient phase's first 8 rows and its Jacobian on a CPU engine of
+    the port: g at TOL relative, gradient components and Jacobian entries
+    at GRAD_TOL of their row's largest one on minimize_multistart's scale."""
+    cpu = make_lm_engine(store, "cpu")
+    rows = grad["rows"][:8]
+    g, d = cpu.global_misfits_and_grad(rows)
+    m, J = cpu.misfit_jacobian(grad_start(), mask=grad_mask())
+    rel_g = float(np.abs(grad["g"][:8] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+    rel_m = float(np.abs(grad["m"] - m).max()) / max(float(np.abs(m).max()), 1e-30)
+    worst = []
+    for got, want, scale in ((grad["grad"][:8], d, param_scale(rows)),
+                             (grad["J"], J, param_scale(grad_start())[:, list(GRAD_FREE)])):
+        got, want = got * scale, want * scale
+        bar = np.abs(want).max(axis=1, keepdims=True)
+        worst.append(float((np.abs(got - want) / np.maximum(bar, 1e-30)).max()))
+    log(f"phase card-vs-cpu gradient: 8 rows, max rel diff g {rel_g:.3e}; gradient components "
+        f"{worst[0]:.3e} of the row's largest scaled one; Jacobian at the start: misfits "
+        f"{rel_m:.3e}, entries {worst[1]:.3e} (bars {TOL:g}, {GRAD_TOL:g})")
+    if not (rel_g <= TOL and rel_m <= TOL and max(worst) <= GRAD_TOL):
+        fail(f"gradient: card and CPU port disagree: {rel_g:.3e}, {rel_m:.3e}, {worst}")
+
+
+def compare_long_window(eng, store):
+    """The long-window phase's first 8 models on a CPU engine of the port:
+    misfits, norms and global misfits at TOL, floating shifts equal."""
+    cpu = make_long_engine(store, "cpu")
+    pb = long_rows()[:8]
+    got = [x.cpu().numpy() for x in eng.misfits_for_source_batch(pb)]
+    want = [x.numpy() for x in cpu.misfits_for_source_batch(pb)]
+    g_gpu = eng.global_misfits_for_source_batch(pb).cpu().numpy()
+    g_cpu = cpu.global_misfits_for_source_batch(pb).numpy()
+    rels = [float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+            for a, b in ((g_gpu, g_cpu), (got[0], want[0]), (got[1], want[1]))]
+    shifts_equal = bool((got[2] == want[2]).all())
+    log(f"phase card-vs-cpu long window: 8 models, max rel diff global {rels[0]:.3e}, misfits "
+        f"{rels[1]:.3e}, norms {rels[2]:.3e}; floating shifts equal: {shifts_equal} "
+        f"(CPU formulation {cpu._plan['formulation']!r})")
+    if not (max(rels) <= TOL and shifts_equal):
+        fail(f"long window: card and CPU port disagree: {max(rels):.3e} > {TOL}")
 
 
 def compare_finite(eng, cpu, strikes, label):
@@ -1281,6 +1546,11 @@ def main():
     lm_start[list(LM_FREE)] += LM_OFFSET
     lm.set_source_params("bilateral", lm_start)
     lm_first = lm.get_misfits()  # the start, for the card-vs-CPU phase
+    grad_eng = make_lm_engine(store, dev)
+    long_store, long_build_s = get_long_store()
+    log(f"phase store (long window): {long_store.data.shape} at dt {long_store.dt} built in "
+        f"{long_build_s:.1f} s")
+    long_eng = make_long_engine(long_store, dev)
     mps, counts = {}, {}
     paths = (
         ("unfiltered", ("fused_scan",),
@@ -1294,18 +1564,35 @@ def main():
         ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
         ("grid", ("window_synth", "scan_sums"), lambda: run_grid(finite["finite"], inv)),
         ("lm", ("window_synth",), lambda: run_lm(lm, lm_start, inv)),
+        ("gradient", (), lambda: run_gradient(grad_eng, inv)),
+        ("long_window", ("scan_sums",), lambda: run_long_window(long_eng, inv)),
         ("protocol", ("window_synth", "scan_sums"), lambda: run_protocol(inv)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
     launches = {name: sum(c[name] for c in counts.values()) for name in REPLACES}
+    # the gradient differentiates the plain formulation: no kernel; the long
+    # window's plan has no window kernel
+    if any(counts["gradient"].values()) or counts["long_window"]["window_synth"]:
+        fail(f"kernels launched where none may be: gradient {counts['gradient']}, "
+             f"long window {counts['long_window']}")
+    forms = {label: eng._plan["formulation"] for label, eng in (
+        *engines.items(), *finite.items(), ("eikonal", eik), ("lm", lm), ("gradient", grad_eng),
+        ("long_window", long_eng))}
+    log(f"phase formulations: {forms}")
+    if any(f != "window" for label, f in forms.items() if label != "long_window"):
+        fail(f"a benchmark configuration left the window kernel: {forms}")
     for label in ("grid", "lm"):
         log(f"phase kernel-vs-plain window_synth, scan_sums ({label} call operands):")
         check_captured(label, *inv[f"{label}_ops"], results)
     for part, ops in inv["protocol"]["ops"].items():
         log(f"phase kernel-vs-plain window_synth, scan_sums (protocol {part} call operands):")
         check_captured(f"protocol {part}", *ops, results)
+    log("phase kernel-vs-plain scan_sums (long window call operands):")
+    check_captured("long window", [], inv["long_ops"], results)
     compare_protocol(inv["protocol"])
+    compare_gradient(inv["gradient"], store)
+    compare_long_window(long_eng, long_store)
 
     for label, eng in engines.items():
         cpu = make_engine(store, "cpu", filtered=label == "filtered")
@@ -1358,12 +1645,14 @@ def main():
                   reps=2)
     profile_calls("protocol session", lambda: protocol(prot["server"], prot["dir"], MINI_SESSION),
                   reps=1)
+    profile_gradient(grad_eng)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("models/s (lm: rows evaluated per second) "
-        + ", ".join(f"{k} {v:.0f}" for k, v in mps.items() if k != "protocol"))
+        + ", ".join(f"{k} {v:.0f}" for k, v in mps.items() if k not in ("protocol", "gradient"))
+        + f"; gradient {mps['gradient']:.2f} steps/s ({GRAD_STARTS} rows a step) ({smi})")
     log(f"mini_inp_seconds {mps['protocol']:.6f} ({smi})")
     print(smi)
     print(json.dumps({"kernels": [

@@ -7,8 +7,8 @@ Speaks the reference's line-oriented stdin/stdout command protocol
 Programs written against the Fortran binary (tunguska's seismosizer pool,
 benchmark/mini.inp scripts) work unchanged against this server.  The engine
 computes on the card (MinimizerServer(device="cuda"), the default); without
-one every command that computes answers nok.  minimize_gradient, the JAX
-package's extension, answers nok naming the ROADMAP.md item that brings it.
+one every command that computes answers nok.  minimize_gradient is the JAX
+package's extension of the protocol (autodiff descent, invert.gradient).
 
 Run: python -m kiwi_tpu_torch.cli.minimizer [--device cuda|cpu] [< commands]
 """
@@ -24,11 +24,6 @@ import numpy as np
 from ..engine import Engine, Receiver, to_host
 from ..gf.trace import fnint
 from ..io import writeseismogram
-
-# an unported command names the ROADMAP.md (queue 1) item that brings it
-_TODO_GRADIENT = ("minimize_gradient (gradient inversion) is not ported yet: "
-                  "ROADMAP.md queue 1, item 6")
-
 
 def _fmt(x):
     """List-directed-output style float formatting."""
@@ -231,8 +226,14 @@ class MinimizerServer:
 
     def do_minimize_gradient(self, args):
         """Protocol EXTENSION of the JAX package (not in minimizer.f90):
-        autodiff descent on the masked subparams; not ported yet."""
-        raise NotImplementedError(_TODO_GRADIENT)
+        multi-start autodiff descent on the masked subparams.  args:
+        [steps [lr [nstarts]]]; answers "steps starts misfit"."""
+        parts = args.split()
+        steps = int(parts[0]) if len(parts) > 0 else 150
+        lr = float(parts[1]) if len(parts) > 1 else 0.03
+        nstarts = int(parts[2]) if len(parts) > 2 else 1
+        misfit, nsteps, ns = self.engine.minimize_gradient(steps=steps, lr=lr, nstarts=nstarts)
+        return f"{nsteps} {ns} {_fmt(misfit)}"
 
     def do_get_principal_axes(self, args):
         pax, tax = self.engine.get_principal_axes()

@@ -21,15 +21,25 @@ Three forwards, as in the JAX package:
   window synthesis kernel (ops/synth_window.py), then the scan kernel
   (ops/float_scan.scan_sums) on unfiltered floating plans or the masked
   plain-torch evaluation (misfit.evaluate_misfits) on filtered floating
-  plans and under the time-domain and amplitude-spectrum norms.
+  plans and under the time-domain and amplitude-spectrum norms.  Plans the
+  window kernel cannot take (an extended time axis above
+  synth_window.T_MAX samples, a store with other than 8 or 10 components)
+  synthesize in plain torch instead (plan["formulation"] = "plain", chosen
+  from the plan's config alone, as kiwi_tpu's choose_formulation), then
+  evaluate the same way.
 The eikonal sources discretize a whole batch on the device (prepare_batch
 on the host, then sources/eikonal.discretize_device_batch with the
 fast-sweeping kernel ops/eik_sweep.py), cross-checked once per table shape
 against the host FMM pipeline (a disagreement raises on the card and falls
 back to the host pipeline on the CPU), or on the host (eikonal_device =
-False, and single sources), and then take the window-kernel forward.
-Plans outside them raise NotImplementedError naming the ROADMAP.md item
-that brings them; nothing is computed some other way.
+False, and single sources), and then take the batch forward.
+
+Gradients (global_misfits_and_grad, misfit_jacobian and the descent of
+invert.gradient on them) differentiate the plain formulation
+(plan["forward_batch_xla"]: per-source kinematics, the grouped-direct
+synthesis, spans, the masked evaluation), as the JAX package
+differentiates its XLA formulation: no CUDA kernel has a backward, and
+each refuses inputs that require grad (ops.refuse_grad).
 
 Units: latitudes/longitudes in degrees, distances/depths in meters, times
 in seconds.  Tensors live on `Engine(store, device=...)`'s device, the card
@@ -60,11 +70,6 @@ from .sources import get_source_model
 F32 = torch.float32
 
 LOG = logging.getLogger("kiwi_tpu_torch")
-# an unported case names the ROADMAP.md (queue 1) item that brings it
-_TODO_WINDOW = ("plans outside the window kernel (extended time axis above "
-                f"{synth_window.T_MAX} samples, or a GF store with other than 8 or 10 "
-                "components) need the XLA formulations (synthesize_with_spans & co): "
-                "ROADMAP.md queue 1, item 8")
 
 
 def _table_stats(tables, member=None):
@@ -402,21 +407,26 @@ class Engine:
         rc_sign_t = torch.as_tensor(rc_sign, device=dev)
         span_idx_t = torch.as_tensor(span_of_chan[rc_chan], device=dev)
 
-        def synth_rc(cent):
-            """One source -> component traces + spans: f32[RC, nt_out]
-            (the grouped-direct synthesis of kiwi_tpu, summed over
-            centroids and GF components)."""
-            kin = synth._centroid_kinematics(cfg, recs, cent)
-            v = synth.values_matrix(ext, cfg, kin, group_size=group_size)
-            lo_, hi_ = synth.physical_spans(gfi, gfn, cfg, kin)  # [R, 3]
+        span_tab = synth.span_tables(gfi, gfn, cfg)
+
+        def plain_synth(cbatch):
+            """Per-source kinematics -> the grouped-direct synthesis (the
+            values rows, then the moment-weight contraction) -> spans, in
+            plain torch (kiwi_tpu's synth_rc under vmap, as
+            forward_batch_raw_xla runs it): (syn_rc [B, RC, nt_out], lo_rc,
+            hi_rc [B, RC])."""
+            kin = synth._centroid_kinematics(cfg, recs, cbatch)  # [B, R, C]
+            v = synth.values_matrix(ext, cfg, kin, group_size=group_size)  # [B, R, C, ng, nt]
             wv = torch.where(kin["valid"][..., None, None], kin["wg"], 0.0)
-            ard = torch.einsum("rcog,rcgt->rot", wv, v)  # [R, 3, nt_out]
-            canon = synth.ard_to_components(ard, recs["bazi"], (1, 2, 3, 4, 5))
-            syn_rc = canon[rc_rec_t, rc_chan_t] * rc_sign_t[:, None]
-            return syn_rc, lo_[rc_rec_t, span_idx_t], hi_[rc_rec_t, span_idx_t]
+            ard = torch.einsum("brcog,brcgt->brot", wv, v)  # [B, R, 3, nt_out]
+            lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
+            return rc_rows(ard), lo[:, rc_rec_t, span_idx_t], hi[:, rc_rec_t, span_idx_t]
 
         def synth_one(cent, moment, risetime):
-            syn_rc, lo_rc, hi_rc = synth_rc(cent)
+            """One source -> its scaled component traces f32[RC, nt_out]
+            and spans (plain_synth of a batch of one)."""
+            syn_rc, lo_rc, hi_rc = (x[0] for x in plain_synth(
+                {k: v[None] for k, v in cent.items()}))
             if fold_max > 0:
                 w = mf.fold_stf_weights(risetime, st.dt, fold_max)
                 syn_rc = mf.apply_fold(syn_rc, w)
@@ -517,10 +527,21 @@ class Engine:
             ard = ard.reshape(nrec, bsz, 3, cfg.nt_out).transpose(0, 1)
             return eval_batch(rc_rows(ard), lo_rc, hi_rc, moments, risetimes)
 
-        forward_batch = None
-        if synth_window.usable(cfg):
+        def forward_batch_xla(cbatch, moments, risetimes):
+            """The differentiable batch forward (kiwi_tpu's
+            forward_batch_raw_xla): plain_synth, then the masked plain
+            evaluation under every norm, floating ones included.  No kernel
+            wrapper is called, so gradients reach every parameter."""
+            syn_rc, lo_rc, hi_rc = plain_synth(cbatch)
+            return mf.evaluate_misfits(ctx, syn_rc, cfg.out_it0, lo_rc, hi_rc, st, nrec,
+                                       moments, risetimes, rctx, fold_nshift_max=fold_max,
+                                       any_filter=any_filter, eval_win=eval_win, rids=rc_rec)
+
+        # the window kernel where it applies, else the plain synthesis: a
+        # static choice from the plan's config
+        formulation = "window" if synth_window.usable(cfg) else "plain"
+        if formulation == "window":
             ext_flat = synth_window.pack_ext(ext, cfg)
-            span_tab = synth.span_tables(gfi, gfn, cfg)
             gw = gsize if ncent % gsize == 0 else 1  # centroids sharing one GF node
 
             def forward_batch(cbatch, moments, risetimes):
@@ -530,17 +551,28 @@ class Engine:
                 lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
                 return eval_batch(rc_rows(ard), lo[:, rc_rec_t, span_idx_t],
                                   hi[:, rc_rec_t, span_idx_t], moments, risetimes)
+        else:
+            def forward_batch(cbatch, moments, risetimes):
+                """Per-source kinematics -> plain synthesis -> spans -> eval."""
+                return eval_batch(*plain_synth(cbatch), moments, risetimes)
 
         # per-source transient bytes of the batch forwards (kinematics and
         # packed weights, traces, probes, scan or masked-eval blocks; under
         # an amplitude-spectrum norm the extended-grid rows, pair masks and
-        # spectra of ref and synthetic)
+        # spectra of ref and synthetic); the plain synthesis adds its
+        # blended rows [R, P, ng, nt_ext], shifted slices and values block
+        # [R, C, ng, nt_out (+ 1)], which forward_batch_xla always pays
         nrc = len(layout)
         _i0, wk = mf.eval_window_slice(eval_win, st)
         per_source_bytes = 4 * (nrec * ncent * 48 + nrec * 9 * cfg.nt_out
                                 + nrc * st.pl * 8 + (s2 - s1 + 1) * nrc * wk * 3)
         if method in mf.AMPSPEC:
             per_source_bytes += 4 * nrc * mf.amp_grid(st.ps0, st.pl)[1] * 12
+        plain_bytes = 4 * nrec * cfg.ng * (ncent * (2 * cfg.nt_out + 1)
+                                           + ncent // group_size * (cfg.nt_out + cfg.s_len))
+        xla_source_bytes = per_source_bytes + plain_bytes
+        if formulation == "plain":
+            per_source_bytes = xla_source_bytes
 
         return {
             "cfg": cfg,
@@ -551,8 +583,11 @@ class Engine:
             "use_fused_scan": use_fused_scan,
             "forward_shared_fused": forward_shared_fused,
             "forward_shared_raw": forward_shared_raw,
+            "formulation": formulation,
             "forward_batch": forward_batch,
+            "forward_batch_xla": forward_batch_xla,
             "per_source_bytes": per_source_bytes,
+            "xla_source_bytes": xla_source_bytes,
             "synth_one": synth_one,
         }
 
@@ -812,8 +847,6 @@ class Engine:
             tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
             plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats,
                                      gsize=gsize)
-            if plan["forward_batch"] is None:
-                raise NotImplementedError(_TODO_WINDOW)
             fwd = plan["forward_batch"]
 
             def rows(i, j):
@@ -845,7 +878,8 @@ class Engine:
     def _batch_forward(model, pb, plan, risetimes):
         """The forward of a device-discretized batch: the fused kernel for
         shared kinematics when it applies, else the matmul forward; the
-        window kernel for all others."""
+        plan's batch forward (window kernel or plain synthesis) for all
+        others."""
         shared = pb.shape[0] >= 2 and model.shared_kin_check(pb)
         if shared and plan["use_fused_scan"] and (risetimes == risetimes[0]).all():
             fused = plan["forward_shared_fused"]
@@ -854,10 +888,8 @@ class Engine:
                 return fused(cb, mts, rts[0])
         elif shared:
             fwd = plan["forward_shared_raw"]
-        elif plan["forward_batch"] is not None:
-            fwd = plan["forward_batch"]
         else:
-            raise NotImplementedError(_TODO_WINDOW)
+            fwd = plan["forward_batch"]
         return fwd
 
     def global_misfits_for_source_batch(self, params_batch):
@@ -1059,6 +1091,104 @@ class Engine:
 
         return _lm(self, mask=self.params_mask, subparam_mins=self.subparam_mins,
                    subparam_maxs=self.subparam_maxs)
+
+    # -- gradients (kiwi_tpu/engine.py:1300-1607) -----------------------------
+
+    def _grad_plan(self, model, pb):
+        """The plan and grid shape of a device-discretized batch for the
+        gradient entry points, planned as the batch entry points plan it;
+        the JAX package's errors for the cases it cannot differentiate."""
+        if not self._refs:
+            raise RuntimeError("no reference seismograms set")
+        if model.host_discretize or model.post_factors_batch is None:
+            raise NotImplementedError(
+                f"autodiff gradients need a device discretizer and vectorized post "
+                f"factors (source type {self.source_type!r})")
+        stats = self._param_stats(model, pb)
+        shape = self._batch_shape(model, pb)
+        _m, risetimes = self._post_factors(model, pb)
+        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats,
+                                 gsize=int(shape[-1]))
+        return plan, shape
+
+    def _xla_misfits(self, model, plan, shape, leaf):
+        """(misfits, norms) [B, RC] of the plain formulation for the
+        parameter leaf f32[B, nparams]: discretized and post-factored on the
+        leaf itself (the moment and the rise time included), so that the
+        gradient reaches every parameter."""
+        cbatch = model.discretize(leaf, self.effective_dt, shape)
+        moments, risetimes = model.post_factors_batch(leaf)
+        m, n, _fs = plan["forward_batch_xla"](cbatch, moments, risetimes)
+        return m, n
+
+    def _grad_chunk(self, plan, b):
+        """Rows per backward pass: the backward roughly triples the
+        forward's live transients (kiwi_tpu/engine.py:1393-1410); nothing
+        compiles per chunk, so the last one is not padded."""
+        return int(max(8, min(b, self.memory_budget // max(3 * plan["xla_source_bytes"], 1))))
+
+    def global_misfits_and_grad(self, params_batch):
+        """Global misfits g f32[B] and dg/dparams f32[B, nparams] (host
+        arrays) for parameter rows [B, nparams], by reverse-mode autodiff
+        through the plain formulation: the global misfit of each row is
+        stable_l2(misfits) / stable_l2(norms), and one backward pass of
+        their sum gives every row's gradient with respect to every
+        parameter.  Exact almost everywhere: the fractional 2-tap shifts
+        and the bilinear GF blend are piecewise linear in the parameters
+        (the integer grid snaps are the kinks).  Device-discretized models
+        only, as in the JAX package."""
+        model = get_source_model(self.source_type)
+        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
+        plan, shape = self._grad_plan(model, pb)
+        b = pb.shape[0]
+        chunk = self._grad_chunk(plan, b)
+        gs, grads = [], []
+        for i in range(0, b, chunk):
+            leaf = torch.tensor(pb[i:i + chunk], device=self.device, requires_grad=True)
+            m, n = self._xla_misfits(model, plan, shape, leaf)
+            sn = mf.stable_l2(n)
+            g = mf.stable_l2(m) / torch.where(sn == 0.0, 1.0, sn)
+            (grad,) = torch.autograd.grad(g.sum(), leaf)
+            gs.append(g.detach())
+            grads.append(grad)
+        return tuple(to_host(torch.cat(gs), torch.cat(grads)))
+
+    def misfit_jacobian(self, params, mask=None):
+        """(m f32[RC], J f32[RC, n_free]) at `params` (host arrays): the
+        misfit rows minimize_lm minimizes and their Jacobian with respect
+        to the free (masked) parameters.  Reverse mode over the RC rows:
+        RC copies of the row go through the plain formulation as one batch,
+        and one backward pass of the sum of copy k's row k gives row k of J
+        (each copy's misfits depend on its own parameters only).  The JAX
+        package takes one jvp per free parameter; the Jacobian is the same."""
+        model = get_source_model(self.source_type)
+        p = np.asarray(params, dtype=np.float32).reshape(-1)
+        if mask is None:
+            mask = np.ones(model.nparams, dtype=bool)
+        idx = torch.as_tensor(np.flatnonzero(np.asarray(mask, dtype=bool)), device=self.device)
+        plan, shape = self._grad_plan(model, p[None, :])
+        nrc = len(self._rc_layout())
+        chunk = self._grad_chunk(plan, nrc)
+        m0, rows = None, []
+        for i in range(0, nrc, chunk):
+            k = min(chunk, nrc - i)
+            leaf = torch.tensor(np.tile(p, (k, 1)), device=self.device, requires_grad=True)
+            m, _n = self._xla_misfits(model, plan, shape, leaf)  # [k, RC]
+            own = m[:, i:i + k].diagonal()  # copy j's row i + j
+            (grad,) = torch.autograd.grad(own.sum(), leaf)
+            rows.append(grad[:, idx])
+            if m0 is None:
+                m0 = m[0].detach()
+        return tuple(to_host(m0, torch.cat(rows)))
+
+    def minimize_gradient(self, steps=150, lr=0.03, nstarts=1):
+        """(misfit, steps, starts): multi-start projected Adam on the
+        masked subparameters (invert.minimize_gradient), honouring the
+        mask and limit setters as minimize_lm does."""
+        from .invert import minimize_gradient as _mg
+
+        return _mg(self, mask=self.params_mask, subparam_mins=self.subparam_mins,
+                   subparam_maxs=self.subparam_maxs, steps=steps, lr=lr, nstarts=nstarts)
 
     def get_principal_axes(self):
         """(pax, tax) as (azimuth, colatitude) degrees for sdr-type sources

@@ -857,6 +857,19 @@ def global_misfit(misfits, norms):
     return torch.sqrt(torch.sum(m * m, dim=-1)) / torch.sqrt(torch.sum(n * n, dim=-1))
 
 
+def stable_l2(x):
+    """sqrt(sum x^2) over the last axis, max-scaled as minpack's enorm (a
+    moment-1.0 session's squares sit near 1e-38 and flush to zero in
+    float32), with a gradient that stays finite where every x is 0: the
+    double where and gsqrt give the 0 subgradient (kiwi_tpu.engine's
+    global_misfits_and_grad; global_misfit's bare sqrt has no such guard)."""
+    x = x.to(F32)
+    a = torch.abs(x).amax(dim=-1)
+    a_s = torch.where(a == 0.0, 1.0, a)
+    y = x / a_s[..., None]
+    return a * gsqrt(torch.sum(y * y, dim=-1))
+
+
 # ---------------------------------------------------------------------------
 # diagnostics
 # ---------------------------------------------------------------------------

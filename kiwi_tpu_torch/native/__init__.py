@@ -6,8 +6,9 @@ The library is built with g++ at first use into
 `build/kiwi_tpu_torch/libkiwinative-<hash>.so` beside the package (never
 into the package directory), keyed by a hash of the sources and the flags,
 so an edited source rebuilds; `python -m kiwi_tpu_torch.native` builds it
-ahead of time.  When g++ is missing or the build fails, get_lib() returns
-None and io/ uses its pure-Python codecs, which write the same bytes.
+ahead of time.  When g++ or the sources are missing (the sources ship as
+package data) or the build fails, get_lib() returns None and io/ uses its
+pure-Python codecs, which write the same bytes.
 """
 
 from __future__ import annotations
@@ -28,16 +29,22 @@ _tried = False
 
 
 def library_path():
-    """Where the build of the current sources and flags lives."""
+    """Where the build of the current sources and flags lives, or None when
+    the sources are not there (an install without them)."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
-        h.update((_DIR / src).read_bytes())
+    try:
+        for src in _SOURCES:
+            h.update((_DIR / src).read_bytes())
+    except OSError:
+        return None
     return BUILD_DIR / f"libkiwinative-{h.hexdigest()[:16]}.so"
 
 
 def build(verbose=False):
     """Compile the native library unless this build exists; returns its path."""
     so = library_path()
+    if so is None:
+        raise RuntimeError(f"native codec sources {_SOURCES} are missing from {_DIR}")
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -59,7 +66,7 @@ def get_lib(auto_build=True):
     if _lib is not None:
         return _lib
     so = library_path()
-    if _tried and not so.exists():
+    if so is None or (_tried and not so.exists()):
         return None
     _tried = True
     if not so.exists():

@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 F32 = torch.float32
 I32 = torch.int32
@@ -81,6 +81,7 @@ def sweep_solve_batch(speed, delta, first, initial_point, n_rounds=3):
     """Arrival times f32[B, nx, ny] (kiwi_tpu.ops.eik_sweep.sweep_solve_batch's
     signature): speed f32[B, nx, ny]; delta, first, initial_point f32[B, 2]."""
     B, nx, ny = _check(speed, delta, first, initial_point, n_rounds)
+    refuse_grad("sweep_solve_batch", speed, delta, first, initial_point)
     dev = speed.device
     if dev.type == "cpu":
         return sweep_solve_batch_reference(speed, delta, first, initial_point, n_rounds)

@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 # kernel launches per kernel since the last reset (plain-version calls are
 # not counted): "fused_scan" replaces _fused_kernel, "fused_scan_masked"
@@ -91,6 +91,7 @@ def fused_scan_sums(ref, v, wgt, lo=None, hi=None, basei=0, k_share=1, l2=False)
     (unmasked), dt and the floating-shift selection.
     """
     RC, S, T, W, B = _check(ref, v, wgt, lo, hi, k_share)
+    refuse_grad("fused_scan_sums", ref, v, wgt)
     dev = ref.device
     if dev.type == "cpu":
         return fused_scan_sums_reference(ref, v, wgt, lo, hi, basei, k_share, l2)
@@ -196,6 +197,7 @@ def scan_sums(ref, syn, l2=False):
             raise ValueError(f"{name} must have unit stride along W, got strides {x.stride()}")
     if ref.device != syn.device:
         raise ValueError("ref and syn must be on one device")
+    refuse_grad("scan_sums", ref, syn)
     RC, B, W = syn.shape
     S = ref.shape[0] // RC
     dev = ref.device

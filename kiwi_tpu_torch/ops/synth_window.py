@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 F32 = torch.float32
 I32 = torch.int32
@@ -174,6 +174,7 @@ def window_forward(ext, node_rows, strides3, kk, wrows, wsp, nt_out):
     (pack_ext, strides, pack_kinematics)."""
     s1, s2, s3 = (int(s) for s in strides3)
     N, ng, nt_ext, B, R, P, G = _check(ext, node_rows, s3, kk, wrows, wsp, nt_out)
+    refuse_grad("window_forward", ext, wrows, wsp)
     dev = ext.device
     if dev.type == "cpu":
         return window_forward_reference(ext, node_rows, strides3, kk, wrows, wsp, nt_out)

@@ -366,18 +366,22 @@ def weights_from_angles(kin, m6, ng):
 
 
 def values_matrix(ext, cfg: SynthConfig, kin, group_size=1):
-    """Per-centroid GF values v f32[R, C, ng, nt_out]: bilinear-blended,
+    """Per-centroid GF values v f32[..., R, C, ng, nt_out]: bilinear-blended,
     fractionally time-shifted -- everything of the synthesis except the
-    moment-weight contraction.  Runs of `group_size` centroids share one
-    spatial blend.  The shift window start is clamped into range, as
-    jax.lax.dynamic_slice_in_dim does (torch slicing does not clamp)."""
-    nrec, c = kin["ish"].shape
+    moment-weight contraction -- for kin leaves [R, C] (one source) or
+    [B, R, C] (a batch).  Runs of `group_size` centroids share one spatial
+    blend, read through a broadcast view (no copy per centroid).  The shift
+    window start is clamped into range, as jax.lax.dynamic_slice_in_dim does
+    (torch slicing does not clamp).  Plain torch, differentiable in the
+    bilinear weights and the fractional shifts."""
+    *lead, c = kin["ish"].shape
     g = group_size if (group_size > 1 and c % group_size == 0) else 1
+    p = c // g
     nt_ext = ext.shape[-1]
     start_k = cfg.s_base + cfg.s_len - 1
     ext2 = ext.reshape(cfg.nxw * cfg.nzw, cfg.ng, nt_ext)
-    ixs, izs = kin["ixs"][:, ::g], kin["izs"][:, ::g]  # [R, P, 2]
-    wsp = kin["wsp"][:, ::g]  # [R, P, 4]
+    ixs, izs = kin["ixs"][..., ::g, :], kin["izs"][..., ::g, :]  # [..., P, 2]
+    wsp = kin["wsp"][..., ::g, :]  # [..., P, 4]
     nodes = (
         ixs[..., 0] * cfg.nzw + izs[..., 0],
         ixs[..., 0] * cfg.nzw + izs[..., 1],
@@ -389,13 +393,14 @@ def values_matrix(ext, cfg: SynthConfig, kin, group_size=1):
         + wsp[..., 1, None, None] * ext2[nodes[1]]
         + wsp[..., 2, None, None] * ext2[nodes[2]]
         + wsp[..., 3, None, None] * ext2[nodes[3]]
-    )  # [R, P, ng, nt_ext]
-    blended = blended.repeat_interleave(g, dim=1)  # [R, C, ng, nt_ext]
+    )  # [..., P, ng, nt_ext]
+    grouped = (*lead, p, g, cfg.ng)
+    blended = blended.unsqueeze(-3).expand(*grouped, nt_ext)  # [..., P, g, ng, nt_ext]
 
-    start = (start_k - kin["ish"].long()).clamp(0, nt_ext - cfg.nt_out - 1)  # [R, C]
+    start = (start_k - kin["ish"].long()).clamp(0, nt_ext - cfg.nt_out - 1)  # [..., C]
     idx = start[..., None] + torch.arange(cfg.nt_out + 1, device=ext.device)
-    idx = idx[:, :, None, :].expand(nrec, c, cfg.ng, cfg.nt_out + 1)
-    sl = torch.gather(blended, -1, idx)  # [R, C, ng, nt_out + 1]
+    idx = idx.reshape(*lead, p, g, 1, cfg.nt_out + 1).expand(*grouped, cfg.nt_out + 1)
+    sl = torch.gather(blended, -1, idx).reshape(*lead, c, cfg.ng, cfg.nt_out + 1)
     fr = kin["frac"][..., None, None]
     return (1.0 - fr) * sl[..., 1:] + fr * sl[..., :-1]
 

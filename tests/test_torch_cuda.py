@@ -464,3 +464,89 @@ def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
     with pytest.raises(RuntimeError, match="disagrees with the host FMM oracle.*member 1"):
         eng.global_misfits_for_source_batch(batch)
     assert eng.eikonal_device is True
+
+
+def _card_and_cpu_engines(dev, dt, method, shiftrange):
+    """tests/test_torch_gradient.py's session (3 `ned` receivers, the
+    bilateral fault's own synthetic as the reference) on the card and on the
+    CPU, over one analytic store sampled at dt."""
+    from kiwi_tpu_torch import geo
+    from kiwi_tpu_torch.engine import Engine, Receiver
+    from kiwi_tpu_torch.gf import elseis
+
+    store = elseis.build_ahfull_store(
+        nx=45, nz=8, dt=dt, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
+        material=(2300.0, 3200.0, 1600.0), stf=np.array([0, 0, 0.3, 0.7, 1, 1, 1.0]))
+    out = []
+    for device in (dev, "cpu"):
+        eng = Engine(store, device=device)
+        recs = []
+        for d, az in [(1500.0, 0.0), (2300.0, 1.2), (3100.0, -2.0)]:
+            la, lo = geo.ne_to_latlon(np.radians(30.0), np.radians(70.0), d * np.cos(az),
+                                      d * np.sin(az))
+            recs.append(Receiver(np.degrees(float(la)), np.degrees(float(lo)), "ned"))
+        eng.set_receivers(recs)
+        eng.set_source_location(30.0, 70.0, 0.0)
+        eng.set_effective_dt(0.1)
+        eng.set_local_interpolation(True)
+        eng.set_source_params("bilateral", BILAT)
+        eng.set_misfit_method(method)
+        eng.set_synthetic_reference()
+        eng.set_floating_shiftrange(*shiftrange)
+        out.append(eng)
+    return out
+
+
+BILAT = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 91.0, 87.0, 164.0, 0.0, 300.0, 200.0, 250.0,
+                  2500.0, 0.2], np.float32)
+
+
+def _launch_counts():
+    return {**float_scan.launches, **synth_window.launches, **eik_sweep.launches}
+
+
+@pytest.mark.parametrize("method,shiftrange", [("l2norm", (0.0, 0.0)),
+                                               ("floating_l1norm", (-0.5, 0.5))])
+def test_gradient_on_the_card_matches_cpu(cuda_dev, method, shiftrange):
+    """global_misfits_and_grad and misfit_jacobian on the card against the
+    CPU port: g at 1e-5 relative, every gradient and Jacobian component at
+    1e-4 of its row's largest (minimize_multistart's scale); no kernel runs."""
+    from kiwi_tpu_torch.sources import get_source_model
+
+    card, cpu = _card_and_cpu_engines(cuda_dev, 0.1, method, shiftrange)
+    rows = np.tile(BILAT, (3, 1))
+    rows[:, 5] += (13.0, -6.5, 4.2)
+    rows[:, 6] -= (7.0, 2.5, 1.1)
+    rows[:, 0] += (0.03, -0.02, 0.01)
+    before = _launch_counts()
+    g, grad = card.global_misfits_and_grad(rows)
+    m, J = card.misfit_jacobian(rows[0], mask=np.isin(np.arange(14), (5, 6, 7)))
+    assert _launch_counts() == before
+    g_cpu, grad_cpu = cpu.global_misfits_and_grad(rows)
+    m_cpu, J_cpu = cpu.misfit_jacobian(rows[0], mask=np.isin(np.arange(14), (5, 6, 7)))
+    np.testing.assert_allclose(g, g_cpu, rtol=1e-5, atol=1e-5 * np.abs(g_cpu).max())
+    np.testing.assert_allclose(m, m_cpu, rtol=1e-5, atol=1e-5 * np.abs(m_cpu).max())
+    norm = get_source_model("bilateral").norm.astype(np.float64)
+    scale = np.where(rows != 0, np.abs(rows), 0.01 * norm)
+    for got, want, sc in ((grad, grad_cpu, scale), (J, J_cpu, scale[0, 5:8])):
+        d = np.abs(got - want) * sc
+        assert (d <= 1e-4 * (np.abs(want) * sc).max(axis=-1, keepdims=True)).all()
+
+
+def test_long_window_plan_on_the_card(cuda_dev):
+    """An extended time axis above T_MAX: the plain synthesis on the card,
+    then the scan kernel (one launch, no window kernel), against the CPU
+    port at 1e-5 relative."""
+    card, cpu = _card_and_cpu_engines(cuda_dev, 0.001, "floating_l1norm", (-0.02, 0.02))
+    rows = np.tile(BILAT, (4, 1))
+    rows[:, 5] = (20.0, 91.0, 150.0, 260.0)
+    before = _launch_counts()
+    m, n, fs = (x.cpu().numpy() for x in card.misfits_for_source_batch(rows))
+    after = _launch_counts()
+    assert card._plan["formulation"] == "plain"
+    assert after["scan_sums"] - before["scan_sums"] == 1
+    assert after["window_synth"] == before["window_synth"]
+    mc, nc, fsc = (x.numpy() for x in cpu.misfits_for_source_batch(rows))
+    np.testing.assert_allclose(m, mc, rtol=1e-5, atol=1e-5 * np.abs(mc).max())
+    np.testing.assert_allclose(n, nc, rtol=1e-5, atol=1e-5 * np.abs(nc).max())
+    np.testing.assert_array_equal(fs, fsc)

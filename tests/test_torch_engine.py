@@ -309,7 +309,7 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kiwi_tpu'))\n"
         "assert not bad, bad\n"
         "new = ('cli.minimizer', 'io', 'io.mseed', 'io.sac', 'io.table', 'io.gfdb_hdf5',\n"
-        "       'native', 'dataset', 'gf.interpolation')\n"
+        "       'native', 'dataset', 'gf.interpolation', 'invert.gradient')\n"
         "missing = [m for m in new if 'kiwi_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('kiwi_tpu_torch')]))\n"
