@@ -93,7 +93,22 @@ and fails on the first phase that goes wrong:
    nok; the window and scan kernels held against their plain
    versions on the operands of MINI_SESSION's and of MINI_LM's calls, the
    last call of each shape (LM's 4-row Jacobian calls through the
-   source-tile instance at the protocol's 11 receivers among them);
+   source-tile instance at the protocol's 11 receivers among them); then
+   the Step pipeline: kiwi_tpu_torch.cli.kiwi_main.work on the card at its
+   defaults (grid_step_deg 10: 11,664 SDR models, 576 weight-maker models,
+   143 moment-depth models; bootstrap 100; shifter over +-1 s; the begin
+   table's taper) over a data directory that dataset.save_dataset writes
+   in MiniSEED from BASE at 10 `ned` receivers at 3-4 km, 36 degrees apart
+   (make_pipeline_session), searched from half the moment and the default
+   mechanism: mechanism correlation > 0.9, |log10 moment ratio| < 0.2,
+   depth within 150 m (tests/test_kiwi_main.py's bars), report.html, every
+   results.pickle loaded in a process that does not initialize CUDA, the
+   plan "window", seconds per step, the SDR grid's models/s; the window
+   kernel held against its plain version on the operands of its calls
+   there; then one autokiwi cycle (pull, prepare through
+   prepare.save_kiwi_dataset, process as `kiwi_main --device cuda work` at
+   grid_step_deg 30 in a child process, report): the done file present,
+   no fail file;
 7. run the first 16 strikes of each sweep, the first 32 models of each
    finite configuration, the first and last 32 of the grid, the LM start
    and end, and the first 8 radii on a CPU Engine and require 1e-5
@@ -106,10 +121,13 @@ and fails on the first phase that goes wrong:
    protocol session on a CPU server, answer by answer (shifts exactly) and
    file by file, its misfits at the card's LM end (at OPT_TOL), and
    MINI_GRADIENT's answer from there (steps and starts exactly, the
-   misfit within 1e-5);
+   misfit within 1e-5); the pipeline SDR tuner's first and last 32 models
+   on a CPU engine set up from the same data directory (misfits and norms
+   at 1e-5);
 8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
    eikonal calls, 2 grid computes, 2 LM runs from the start, 2 timed
-   mini.inp blocks, 1 protocol session and 2 gradient calls of 64 rows with
+   mini.inp blocks, 1 protocol session, 2 gradient calls of 64 rows and 2
+   computes of the pipeline's SDR grid with
    torch.profiler: the device time by kernel, the device's busy time, the
    host syncs, for eikonal the host-side batch preparation alone, and for
    the gradient the backward's share of the device time and the forward's
@@ -200,6 +218,17 @@ GRAD_TOL = 1e-4  # card vs CPU: gradient components, of the row's largest scaled
 LONG_STORE = dict(nx=40, nz=26, dt=0.002, dx=100.0, dz=100.0, firstx=1500.0, firstz=3800.0)
 LONG_B = 32
 LONG_SHIFT = 0.1  # floating_l1norm over +-0.1 s: 101 trial shifts at 2 ms
+# the Step pipeline (kiwi_main work, at its own defaults: grid_step_deg 10,
+# bootstrap 100): BASE as the observed data at 10 `ned` receivers at 3-4 km
+# spread 36 degrees apart in azimuth (one azimuth leaves the mechanism
+# unresolved), searched from half its moment and the default mechanism at
+# the true depth (from 4000 m, Shifter's +-1 s aligns the references to the
+# wrong depth and the depth search stays there)
+PIPE_OPTS = {"components": "ned", "effective_dt": "0.1", "sourcetype": "bilateral",
+             "depth": "5000", "moment": "5e11", "shiftrange": "-1,1",
+             "taper": "begin,0,1,14,15", "rupture-velocity": "2500", "rise-time": "0.2"}
+PIPE_STEP_DEG = 10.0  # kiwi_main's default grid_step_deg: 36 x 9 x 36 = 11,664 SDR models
+AUTOKIWI_EVENT = "ev-smoke 1700000000.0 30.0 70.0 5000 5.3 smoke region"
 # answers compared exactly between the card and the CPU port (shifts)
 EXACT = ("set_receivers", "get_floating_shifts", "autoshift_ref_seismogram")
 SOURCES = {
@@ -1269,6 +1298,272 @@ def run_protocol(out, device="cuda"):
     return seconds
 
 
+def make_pipeline_session(store, device):
+    """The observed data of the pipeline phase: make_session's distances
+    (3-4 km, 10 `ned` receivers), 36 degrees apart in azimuth, BASE (the
+    point bilateral source) under l2norm as its own synthetic reference."""
+    from kiwi_tpu_torch import geo
+    from kiwi_tpu_torch.engine import Receiver
+
+    eng = make_session(store, device)
+    recs = []
+    for i, d in enumerate(np.linspace(3000.0, 4000.0, 10)):
+        az = np.radians(36.0 * i)
+        la, lo = geo.ne_to_latlon(np.radians(30.0), np.radians(70.0), d * np.cos(az),
+                                  d * np.sin(az))
+        recs.append(Receiver(np.degrees(float(la)), np.degrees(float(lo)), "ned"))
+    eng.set_receivers(recs)
+    eng.set_misfit_method("l2norm")
+    eng.set_source_params("bilateral", BASE)
+    eng.set_synthetic_reference()
+    return eng
+
+
+def sdr_ranges(step):
+    """kiwi_main's strike/dip/slip-rake grid at grid_step_deg = step."""
+    return [("strike", np.arange(0.0, 360.0, step)), ("dip", np.arange(step, 91.0, step)),
+            ("slip-rake", np.arange(-180.0, 180.0, step))]
+
+
+def check_recovery(label, best):
+    """tests/test_kiwi_main.py's bars against BASE: moment-tensor correlation
+    above 0.9, |log10(moment ratio)| under 0.2, depth within 150 m."""
+    from kiwi_tpu_torch.euler import mt_from_sdr
+
+    truth = mt_from_sdr(*np.radians(BASE[5:8].astype(np.float64)))
+    got = mt_from_sdr(*np.radians([best["strike"], best["dip"], best["slip-rake"]]))
+    corr = float((truth * got).sum() / np.sqrt((truth**2).sum() * (got**2).sum()))
+    dm = abs(float(np.log10(best["moment"] / BASE[4])))
+    dz = abs(float(best["depth"] - BASE[3]))
+    log(f"phase {label}: best strike {best['strike']}, dip {best['dip']}, slip-rake "
+        f"{best['slip-rake']}, moment {best['moment']:.4e}, depth {best['depth']}: mechanism "
+        f"correlation {corr:.4f} (bar > 0.9), |log10 moment ratio| {dm:.4f} (< 0.2), "
+        f"|depth - truth| {dz:.1f} m (< 150)")
+    if not (corr > 0.9 and dm < 0.2 and dz < 150.0):
+        fail(f"{label}: the search missed the truth: {corr}, {dm}, {dz}")
+
+
+def results_load_without_cuda(workdir):
+    """Every step's current/results.pickle loaded in a fresh process that
+    sees no card and must not initialize CUDA; returns how many."""
+    code = ("import glob, os, pickle, sys, torch\n"
+            "fns = sorted(glob.glob(os.path.join(sys.argv[1], '*', 'current', 'results.pickle')))\n"
+            "for fn in fns:\n"
+            "    with open(fn, 'rb') as f:\n"
+            "        pickle.load(f)\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print(len(fns))\n")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")])}
+    r = subprocess.run([sys.executable, "-c", code, workdir], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"pipeline: the run's results do not load without the card:\n{r.stderr[-2000:]}")
+    return int(r.stdout.split()[-1])
+
+
+def run_pipeline(store, out, device="cuda"):
+    """kiwi_main.work on the card at its defaults over a data directory
+    written by save_dataset (MiniSEED through the native codec) from
+    make_pipeline_session: informer, shifter (+-1 s), weightmaker, the SDR
+    tuner (11,664 models, bootstrap 100), the moment-depth tuner (143) and
+    traceplotter (skipped without matplotlib), with the begin-table taper.
+    Fails unless the best source meets check_recovery's bars, report.html
+    exists and every results.pickle loads without the card.  Logs seconds
+    per step and the SDR grid's models/s (MisfitGrid.compute rerun on the
+    same engine).  out["pipeline"]: the engine, the steps, the directories
+    and the window operands (the last call of each shape)."""
+    import torch
+
+    from kiwi_tpu_torch import dataset, native, pipeline
+    from kiwi_tpu_torch.cli import kiwi_main
+    from kiwi_tpu_torch.invert import MisfitGrid, Source
+    from kiwi_tpu_torch.ops import synth_window as sw
+
+    if native.get_lib() is None:
+        fail("pipeline: the native MiniSEED library did not build")
+    base = os.path.join(HERE, "build", "kiwi_tpu_torch", "pipeline")
+    shutil.rmtree(base, ignore_errors=True)
+    datadir, workdir = os.path.join(base, "data"), os.path.join(base, "work")
+    dataset.save_dataset(datadir, make_pipeline_session(store, device), fmt="mseed")
+    engines, seconds, done = [], {}, []
+    real = dataset.standard_setup, pipeline.Step.pre_work, pipeline.Step.post_work
+
+    def setup(*a, **kw):
+        engines.append(real[0](*a, **kw))
+        return engines[-1]
+
+    def pre_work(step):
+        seconds[step.name] = time.perf_counter()
+        real[1](step)
+
+    def post_work(step):
+        real[2](step)
+        seconds[step.name] = time.perf_counter() - seconds[step.name]
+
+    dataset.standard_setup, pipeline.Step.pre_work, pipeline.Step.post_work = (
+        setup, pre_work, post_work)
+    try:
+        t0 = time.perf_counter()
+        windows = capture(sw, "window_forward", lambda: done.append(
+            kiwi_main.work(datadir, STORE_CACHE, workdir, device=device, **PIPE_OPTS)),
+            window_shapes)
+        wall = time.perf_counter() - t0
+    finally:
+        dataset.standard_setup, pipeline.Step.pre_work, pipeline.Step.post_work = real
+    best, steps = done[0]
+    eng = engines[0]
+    log(f"phase pipeline: kiwi_main work in {wall:.3f} s; seconds per step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+        + f"; window_forward shapes (B, R, P, G, nt_ext, nt_out) "
+          f"{[window_shapes(a) for a, _kw in windows]}")
+    check_recovery("pipeline", best)
+    names = [st.name for st in steps]
+    if names != ["informer", "shifter", "weightmaker", "sdr-tuner", "moment-depth-tuner",
+                 "traceplotter"] or not os.path.exists(os.path.join(workdir, "report.html")):
+        fail(f"pipeline: steps {names} or report.html missing")
+    if not all(r.enabled for r in eng.receivers) or len(eng._tapers) != 30:
+        fail("pipeline: the begin-table taper did not keep every receiver")
+    nres = results_load_without_cuda(workdir)
+    if nres != len(steps):
+        fail(f"pipeline: {nres} results.pickle of {len(steps)} steps loaded")
+    sdr = next(st for st in steps if st.name == "sdr-tuner")
+    dump = sdr.load(sdr.name)
+    grid = MisfitGrid(Source("bilateral", dump["params"][0]), sdr_ranges(PIPE_STEP_DEG))
+    if not np.array_equal(grid.params, dump["params"]):
+        fail("pipeline: the SDR grid is not kiwi_main's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid.compute(eng)  # ends in the results' copy to the host
+    mps = grid.nsources / (time.perf_counter() - t0)
+    log(f"phase pipeline: SDR grid {grid.nsources} models, {mps:.0f} models/s (compute "
+        f"alone; the step {seconds['sdr-tuner']:.4f} s with bootstrap x100); shifts "
+        f"{steps[1].out_config['ref_shifts']}; min misfit "
+        f"{steps[4].out_config['min_misfit']:.6g}; {nres} results.pickle loaded without CUDA; "
+        f"traceplotter: {steps[-1].results.get('skipped', 'figures drawn')}")
+    out["pipeline"] = {"engine": eng, "steps": steps, "dump": dump, "grid": grid,
+                       "datadir": datadir, "workdir": workdir, "ops": (windows, [])}
+    return mps
+
+
+def compare_pipeline(pipe, store):
+    """The SDR tuner's first and last 32 models on a CPU engine of the port
+    set up as the run set up its own (standard_setup on the data directory,
+    the begin-table taper at the start's depth, Shifter's shifts): misfits
+    and norms at TOL."""
+    from kiwi_tpu_torch import dataset, phases
+
+    cpu = dataset.standard_setup(pipe["datadir"], store, components="ned", effective_dt=0.1,
+                                 device="cpu")
+    cpu.set_misfit_method("l2norm")
+    dump = pipe["dump"]
+    cpu.set_source_params("bilateral", dump["params"][0])
+    w = PIPE_OPTS["taper"].split(",")
+    phases.apply_taper_to_engine(cpu, phases.Taper(phases=tuple(w[:-4]),
+                                                   offsets=[float(x) for x in w[-4:]]))
+    for irec, sh in enumerate(pipe["steps"][1].out_config["ref_shifts"]):
+        cpu.shift_ref_seismogram(irec, int(round(sh / store.dt)))
+    for name, sel in (("first", slice(0, 32)), ("last", slice(-32, None))):
+        m, n, _fs = (x.numpy() for x in cpu.misfits_for_source_batch(dump["params"][sel]))
+        shape = dump["misfits_by_src"][sel].shape
+        compare_misfits(f"pipeline SDR tuner ({name} 32 models)",
+                        (dump["misfits_by_src"][sel], dump["norms_by_src"][sel]),
+                        (m.reshape(shape), n.reshape(shape)))
+
+
+def run_autokiwi(out, device="cuda"):
+    """One autokiwi cycle (pull, prepare, process, report) over a local
+    catalog of one event at the pipeline's source: prepare_hook writes the
+    event's data directory with prepare.save_kiwi_dataset from the pipeline
+    phase's reference files (the stations as XX.Snn, channels BHN/BHE/BHZ),
+    the processing command is kiwi_main --device cuda work at grid_step_deg
+    30 in a child process.  Fails unless the done file (the run's
+    report.html) exists and the fail file does not."""
+    from kiwi_tpu_torch.cli import autokiwi
+
+    base = os.path.join(HERE, "build", "kiwi_tpu_torch", "autokiwi")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with open(os.path.join(base, "catalog.txt"), "w") as f:
+        f.write(AUTOKIWI_EVENT + "\n")
+    work = ["work", "data", STORE_CACHE, "run", "grid_step_deg=30", "bootstrap_iterations=20",
+            *(f"{k}={v}" for k, v in PIPE_OPTS.items())]
+    km = [sys.executable, "-m", "kiwi_tpu_torch.cli.kiwi_main"]
+    conf = f"""import os
+from kiwi_tpu_torch import prepare
+from kiwi_tpu_torch.cli.autokiwi import Event
+from kiwi_tpu_torch.dataset import load_receivers_table
+from kiwi_tpu_torch.io import readseismogram
+
+SOURCE = {out["pipeline"]["datadir"]!r}
+CHANNELS = {{"n": "BHN", "e": "BHE", "d": "BHZ"}}
+
+
+def prepare_hook(name, pdir):
+    ev = Event.load(os.path.join(pdir, "event.txt"))
+    stations, traces = [], []
+    for i, r in enumerate(load_receivers_table(os.path.join(SOURCE, "receivers.table"))):
+        sta = f"S{{i:02d}}"
+        stations.append(prepare.Station("XX", sta, "", r.lat_deg, r.lon_deg))
+        for c, ch in CHANNELS.items():
+            y, t0, dt = readseismogram(os.path.join(SOURCE, f"reference-{{i + 1}}-{{c}}.mseed"))
+            traces.append(prepare.RawTrace("XX", sta, "", ch, ev.time + t0, dt, y))
+    data = os.path.join(pdir, "data")
+    prepare.save_kiwi_dataset(stations, traces, ev, Config(
+        wanted_channels=list(CHANNELS.values()),
+        kiwi_component_map={{ch: c for c, ch in CHANNELS.items()}},
+        trace_time_zero="event",
+        receivers_path=os.path.join(data, "receivers.table"),
+        displacement_trace_path=os.path.join(data, "reference-%(ireceiver)i-%(component)s.mseed"),
+        source_origin_path=os.path.join(data, "source-origin.table"),
+        event_info_path=os.path.join(data, "event.txt")))
+
+
+base_config = Config(base_dir={base!r}, event_dir="%(base_dir)s/events/%(event_name)s",
+                     seed_volume="%(event_dir)s/data.kiwi", fail_filename="%(event_dir)s/failed")
+pull_config = Config(base_config, catalog=os.path.join({base!r}, "catalog.txt"))
+kiwi_config = Config(base_config, processing_dir="%(event_dir)s/work",
+                     prepare_hook=prepare_hook,
+                     processing_command={km + ["--device", device] + work!r},
+                     report_command={km + ["report", "run"]!r},
+                     done_filename="%(processing_dir)s/run/report.html")
+"""
+    conf_fn = os.path.join(base, "autokiwi.conf")
+    with open(conf_fn, "w") as f:
+        f.write(conf)
+    name = AUTOKIWI_EVENT.split()[0]
+    event_dir = os.path.join(base, "events", name)
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join([HERE] + ([env_path] if env_path else []))
+    t0 = time.perf_counter()
+    try:
+        for cmd in (["pull", "all"], ["prepare,process,report", name]):
+            try:
+                autokiwi.main(["--config", conf_fn, *cmd])
+            except SystemExit as e:
+                log(f"phase autokiwi: {' '.join(cmd)} exited {e.code}")
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    seconds = time.perf_counter() - t0
+    done = os.path.join(event_dir, "work", "run", "report.html")
+    failed = os.path.join(event_dir, "failed")
+    ok = os.path.exists(done) and not os.path.exists(failed)
+    log(f"phase autokiwi: pull, prepare, process (kiwi_main --device {device} work, grid_step_deg "
+        f"30, in a child process), report in {seconds:.2f} s; done file {os.path.exists(done)}, "
+        f"fail file {os.path.exists(failed)}")
+    if not ok:
+        fail("autokiwi: the cycle did not finish (no done file, or a fail file)")
+    from kiwi_tpu_torch.dataset import load_receivers_table
+
+    rows = load_receivers_table(os.path.join(event_dir, "work", "data", "receivers.table"))
+    if len(rows) != 10 or {r.components for r in rows} != {"end"}:
+        fail(f"autokiwi: prepare wrote {len(rows)} receivers")
+    return seconds
+
+
 def compare_protocol(prot):
     """MINI_SESSION on a CPU server against the card's answers (each
     numeric answer at TOL of its largest value, shifts exactly) and files
@@ -1567,6 +1862,9 @@ def main():
         ("gradient", (), lambda: run_gradient(grad_eng, inv)),
         ("long_window", ("scan_sums",), lambda: run_long_window(long_eng, inv)),
         ("protocol", ("window_synth", "scan_sums"), lambda: run_protocol(inv)),
+        ("pipeline", ("window_synth",), lambda: run_pipeline(store, inv)),
+        # kiwi_main runs in autokiwi's child process: its launches count there
+        ("autokiwi", (), lambda: run_autokiwi(inv)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
@@ -1578,7 +1876,7 @@ def main():
              f"long window {counts['long_window']}")
     forms = {label: eng._plan["formulation"] for label, eng in (
         *engines.items(), *finite.items(), ("eikonal", eik), ("lm", lm), ("gradient", grad_eng),
-        ("long_window", long_eng))}
+        ("long_window", long_eng), ("pipeline", inv["pipeline"]["engine"]))}
     log(f"phase formulations: {forms}")
     if any(f != "window" for label, f in forms.items() if label != "long_window"):
         fail(f"a benchmark configuration left the window kernel: {forms}")
@@ -1590,9 +1888,12 @@ def main():
         check_captured(f"protocol {part}", *ops, results)
     log("phase kernel-vs-plain scan_sums (long window call operands):")
     check_captured("long window", [], inv["long_ops"], results)
+    log("phase kernel-vs-plain window_synth (pipeline call operands):")
+    check_captured("pipeline", *inv["pipeline"]["ops"], results)
     compare_protocol(inv["protocol"])
     compare_gradient(inv["gradient"], store)
     compare_long_window(long_eng, long_store)
+    compare_pipeline(inv["pipeline"], store)
 
     for label, eng in engines.items():
         cpu = make_engine(store, "cpu", filtered=label == "filtered")
@@ -1646,14 +1947,19 @@ def main():
     profile_calls("protocol session", lambda: protocol(prot["server"], prot["dir"], MINI_SESSION),
                   reps=1)
     profile_gradient(grad_eng)
+    pipe = inv["pipeline"]
+    profile_calls("pipeline SDR grid", lambda: pipe["grid"].compute(pipe["engine"]), reps=2)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("models/s (lm: rows evaluated per second) "
-        + ", ".join(f"{k} {v:.0f}" for k, v in mps.items() if k not in ("protocol", "gradient"))
+        + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()
+                    if k not in ("protocol", "gradient", "pipeline", "autokiwi"))
         + f"; gradient {mps['gradient']:.2f} steps/s ({GRAD_STARTS} rows a step) ({smi})")
     log(f"mini_inp_seconds {mps['protocol']:.6f} ({smi})")
+    log(f"pipeline: SDR grid {mps['pipeline']:.0f} models/s, window_synth launches "
+        f"{counts['pipeline']['window_synth']}; autokiwi cycle {mps['autokiwi']:.2f} s ({smi})")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -22,8 +22,11 @@ ops/synth_window.py, and the scan kernel) and the eikonal ruptures (their
 device discretizer through the fast-sweeping kernel, ops/eik_sweep.py)
 under the time-domain and amplitude-spectrum norms, the engine's
 read-back getters and diagnostics, grid search and Levenberg-Marquardt
-inversions on them (invert/), and the minimizer text protocol
-(cli/minimizer.py) with its seismogram I/O (io/, native/); see README.md.
+inversions on them (invert/), the minimizer text protocol
+(cli/minimizer.py) with its seismogram I/O (io/, native/), and the Step
+pipeline (pipeline.py, phases.py, plotting.py, dataset.py) with its runners
+(cli/kiwi_main.py, cli/autokiwi.py) and data preparation (prepare.py,
+config.py, geo.py); see README.md.
 """
 
 import torch as _torch

@@ -1,12 +1,16 @@
-"""Kiwi data-directory conventions: the receiver table and the reference
-seismogram files (port of the parts of kiwi_tpu/dataset.py that the
-minimizer protocol reaches; the orchestration around them waits for
-ROADMAP.md queue 1, item 9).
+"""Kiwi data-directory conventions and engine setup (port of
+kiwi_tpu/dataset.py).
 
+Counterpart of tunguska's standard_setup (inversion.py:118-188) and the
+dataset layout produced by its preparation tools (prepare.py):
+
+    <datadir>/source-origin.table   "lat lon time"
     <datadir>/receivers.table       "lat lon [components]" rows
     <datadir>/reference-<i>-<c>.<format>   reference seismograms
 
 (i is the 1-based receiver number, c the component character.)
+`standard_setup` configures an Engine on the card unless device="cpu" is
+given; `save_dataset` writes such a directory from an engine's state.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import os
 
 import numpy as np
 
-from .engine import Receiver
+from .engine import Engine, Receiver
 from .gf.trace import fnint
 from .io import readseismogram
 
@@ -59,6 +63,76 @@ def load_receivers_table(path, set_components=None, has_depth=None):
     return out
 
 
+def standard_setup(
+    datadir,
+    store,
+    components=None,
+    effective_dt=1.0,
+    spacial_undersampling=(1, 1),
+    crustal_thickness_limit=None,
+    constraining_planes=None,
+    shifts=None,
+    blacklist=None,
+    local_interpolation="bilinear",
+    source_origin_file="source-origin.table",
+    receivers_file="receivers.table",
+    ref_seismogram_stem="reference",
+    ref_seismogram_format="mseed",
+    device="cuda",
+):
+    """Engine on `device` configured from a kiwi data directory.
+
+    store: a GFStore (or path to one: .npz or reference HDF5 base path).
+    """
+    if isinstance(store, str):
+        if store.endswith(".npz"):
+            from .gf.store import GFStore
+
+            store = GFStore.load(store)
+        else:
+            from .io.gfdb_hdf5 import load_gfdb
+
+            store = load_gfdb(store)
+
+    eng = Engine(store, device=device)
+    eng.set_effective_dt(effective_dt)
+    eng.set_local_interpolation(local_interpolation == "bilinear")
+    eng.set_spacial_undersampling(*spacial_undersampling)
+
+    with open(os.path.join(datadir, source_origin_file)) as f:
+        slat, slon, stime = (float(x) for x in f.read().split())
+    eng.set_source_location(slat, slon, stime)
+
+    if crustal_thickness_limit is not None:
+        eng.set_source_crustal_thickness_limit(crustal_thickness_limit)
+    if constraining_planes is not None:
+        points = [p for p, _n in constraining_planes]
+        normals = [n for _p, n in constraining_planes]
+        eng.set_source_constraints(points, normals)
+
+    receivers = load_receivers_table(
+        os.path.join(datadir, receivers_file), set_components=components
+    )
+    if not receivers:
+        raise ValueError("no receivers")
+    eng.set_receivers(receivers)
+
+    load_ref_seismograms(
+        eng, os.path.join(datadir, ref_seismogram_stem), ref_seismogram_format
+    )
+
+    if blacklist:
+        for irec in blacklist:
+            eng.switch_receiver(irec, False)
+    if shifts is not None:
+        # fnint rounds half away from zero, as the reference's nint does
+        # (torch.round would round half to even)
+        for irec, s in enumerate(shifts):
+            ishift = int(fnint(np.float32(s) / np.float32(store.dt)))
+            eng.shift_ref_seismogram(irec, ishift)
+    return eng
+
+
 def load_ref_seismograms(engine, stem, fmt="mseed", missing_ok=False):
     """Read reference-<i>-<c>.<fmt> into the engine
     (receiver_set_ref_seismogram, receiver.f90:746-801).
@@ -99,3 +173,42 @@ def load_ref_seismograms(engine, stem, fmt="mseed", missing_ok=False):
             "reference seismograms missing for enabled receivers: "
             + ", ".join(missing))
     return missing
+
+
+def save_dataset(datadir, engine, which="references", fmt="mseed",
+                 stem=None):
+    """Write a kiwi data directory from an engine's state (the inverse of
+    standard_setup; prepare.py's output conventions)."""
+    from .io import writeseismogram
+
+    os.makedirs(datadir, exist_ok=True)
+    with open(os.path.join(datadir, "source-origin.table"), "w") as f:
+        f.write(f"{engine.src_lat_deg} {engine.src_lon_deg} {engine.ref_time}\n")
+    # depth-bearing 5-column form (prepare.py:133-135) whenever any
+    # receiver carries a depth or name, so a save/standard_setup round
+    # trip preserves the geometry (depth enters the GF lookup)
+    rich = any(r.depth or r.name for r in engine.receivers)
+    with open(os.path.join(datadir, "receivers.table"), "w") as f:
+        for i, r in enumerate(engine.receivers):
+            if rich:
+                f.write(f"{r.lat_deg:.6f} {r.lon_deg:.6f} {r.depth:.1f} "
+                        f"{r.components} {r.name or f'r{i + 1}'}\n")
+            else:
+                f.write(f"{r.lat_deg:.6f} {r.lon_deg:.6f} {r.components}\n")
+
+    stem = stem or ("reference" if which == "references" else "synthetic")
+    dt = engine.store.dt
+    layout = engine._rc_layout()
+    if which == "references":
+        traces = [engine._refs.get(irc) for irc in range(len(layout))]
+    else:
+        traces = engine.get_synthetic_seismograms()
+    for irc, tr in enumerate(traces):
+        if tr is None:
+            continue
+        irec, c = layout[irc]
+        values, itmin = tr
+        fn = os.path.join(datadir, f"{stem}-{irec + 1}-{c}.{fmt}")
+        writeseismogram(fn, fmt, values, engine.ref_time + itmin * dt, dt,
+                        station=str(irec + 1), channel=c)
+    return datadir

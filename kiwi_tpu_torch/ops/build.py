@@ -7,6 +7,10 @@ several sources at once, one nvcc process each.  The hash covers the source
 and the flags, so an edited source rebuilds.  The flags keep IEEE float32
 semantics: no fast math, denormals kept (moment-1.0 sessions put misfit
 samples near 1e-19), correctly rounded division and square root.
+
+A kernel that fails to build, load or launch raises KernelError, one class
+for all of them, so that callers which skip a failing start of a search
+(pipeline.Greeper) can let the card's failures through.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kiwi_tpu_torch"
+
+class KernelError(RuntimeError):
+    """A CUDA kernel of the port failed to build, load or launch."""
+
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,7 +46,7 @@ def find_nvcc():
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+    raise KernelError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
                        "the port's CUDA kernels are built at first use")
 
 
@@ -71,7 +79,7 @@ def build_all(*source_names):
         lib.with_suffix(".log").write_text(report)
         os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return libs
 
 
@@ -82,4 +90,8 @@ def build(source_name):
 
 def load(source_name):
     """ctypes handle of the built library for csrc/<source_name>."""
-    return ctypes.CDLL(str(build(source_name)))
+    path = build(source_name)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelError(f"cannot load {path}: {e}") from e

@@ -95,7 +95,7 @@ def sweep_solve_batch(speed, delta, first, initial_point, n_rounds=3):
         err = _library().kiwi_eik_sweep(speed.data_ptr(), delta.data_ptr(), seed.data_ptr(),
                                         out.data_ptr(), B, nx, ny, n_rounds, stream)
     if err != 0:
-        raise RuntimeError(f"kiwi_eik_sweep launch failed: CUDA error {err}")
+        raise build.KernelError(f"kiwi_eik_sweep launch failed: CUDA error {err}")
     launches["eik_sweep"] += 1
     return out
 

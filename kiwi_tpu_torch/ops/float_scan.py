@@ -112,7 +112,7 @@ def fused_scan_sums(ref, v, wgt, lo=None, hi=None, basei=0, k_share=1, l2=False)
             out.data_ptr(), RC, S, T, W, B, k_share, int(basei), int(masked),
             int(bool(l2)), stream)
     if err != 0:
-        raise RuntimeError(f"kiwi_fused_scan_sums launch failed: CUDA error {err}")
+        raise build.KernelError(f"kiwi_fused_scan_sums launch failed: CUDA error {err}")
     launches["fused_scan_masked" if masked else "fused_scan"] += 1
     return out
 
@@ -212,7 +212,7 @@ def scan_sums(ref, syn, l2=False):
             ref.data_ptr(), syn.data_ptr(), out.data_ptr(), ref.stride(0), syn.stride(0),
             syn.stride(1), S, RC, B, W, int(bool(l2)), stream)
     if err != 0:
-        raise RuntimeError(f"kiwi_scan_sums launch failed: CUDA error {err}")
+        raise build.KernelError(f"kiwi_scan_sums launch failed: CUDA error {err}")
     launches["scan_sums"] += 1
     return out.transpose(1, 2)
 

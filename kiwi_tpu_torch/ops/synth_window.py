@@ -191,7 +191,7 @@ def window_forward(ext, node_rows, strides3, kk, wrows, wsp, nt_out):
             wsp.data_ptr(), out.data_ptr(), N, ng, nt_ext, nt_out, B, R, P, G,
             s1, s2, s3, bt, stream)
     if err != 0:
-        raise RuntimeError(f"kiwi_window_synth launch failed: CUDA error {err}")
+        raise build.KernelError(f"kiwi_window_synth launch failed: CUDA error {err}")
     launches["window_synth"] += 1
     return out
 

@@ -550,3 +550,68 @@ def test_long_window_plan_on_the_card(cuda_dev):
     np.testing.assert_allclose(m, mc, rtol=1e-5, atol=1e-5 * np.abs(mc).max())
     np.testing.assert_allclose(n, nc, rtol=1e-5, atol=1e-5 * np.abs(nc).max())
     np.testing.assert_array_equal(fs, fsc)
+
+
+def test_kiwi_main_work_on_the_card(cuda_dev, tmp_path, monkeypatch):
+    """kiwi_main work on the card at a coarse grid (tests/test_kiwi_main.py's
+    scenario, the data directory written by the port): the plan in the window
+    formulation, window_synth launched, and the same best source and min
+    misfit (1e-5 relative) as the same run on the CPU port.  The SDR grid
+    holds both planes of a double couple (strike 90, dip 90, slip-rake -180
+    is strike 180, dip 90, slip-rake 0), whose misfits tie to float
+    rounding, so the best mechanisms compare by their moment tensors."""
+    from kiwi_tpu_torch.euler import mt_from_sdr
+
+    from kiwi_tpu_torch import dataset, geo
+    from kiwi_tpu_torch.cli import kiwi_main
+    from kiwi_tpu_torch.engine import Engine, Receiver
+    from kiwi_tpu_torch.gf import elseis
+
+    store = elseis.build_ahfull_store(
+        nx=45, nz=8, dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
+        material=(2300.0, 3200.0, 1600.0), stf=np.array([0, 0, 0.3, 0.7, 1, 1, 1.0]))
+    dbfile = str(tmp_path / "db.npz")
+    store.save(dbfile)
+    eng = Engine(store, device="cpu")
+    recs = []
+    for d, az in [(1500.0, 0.0), (2300.0, 1.2), (3100.0, -2.0), (2700.0, 2.6)]:
+        la, lo = geo.ne_to_latlon(np.radians(30.0), np.radians(70.0), d * np.cos(az),
+                                  d * np.sin(az))
+        recs.append(Receiver(np.degrees(float(la)), np.degrees(float(lo)), "ned"))
+    eng.set_receivers(recs)
+    eng.set_source_location(30.0, 70.0, 0.0)
+    eng.set_effective_dt(0.1)
+    eng.set_local_interpolation(True)
+    truth = BILAT.copy()
+    truth[9:12] = 0.0  # a point source
+    eng.set_source_params("bilateral", truth)
+    eng.set_synthetic_reference()
+    datadir = str(tmp_path / "event")
+    dataset.save_dataset(datadir, eng, fmt="mseed")
+
+    engines = []
+    real = dataset.standard_setup
+
+    def setup(*a, **kw):
+        engines.append(real(*a, **kw))
+        return engines[-1]
+
+    monkeypatch.setattr(dataset, "standard_setup", setup)
+    opts = dict(components="ned", effective_dt="0.1", depth="600", moment="5e11",
+                grid_step_deg="30", bootstrap_iterations="10", shiftrange="-0.5,0.5",
+                **{"rupture-velocity": "2500", "rise-time": "0.2"})
+    before = _launch_counts()
+    best, steps = kiwi_main.work(datadir, dbfile, str(tmp_path / "card"), **opts)
+    after = _launch_counts()
+    assert engines[0].device.type == "cuda"
+    assert engines[0]._plan["formulation"] == "window"
+    assert after["window_synth"] > before["window_synth"]
+    best_cpu, steps_cpu = kiwi_main.work(datadir, dbfile, str(tmp_path / "cpu"), device="cpu",
+                                         **opts)
+    sdr = [5, 6, 7]
+    np.testing.assert_array_equal(np.delete(best.params, sdr), np.delete(best_cpu.params, sdr))
+    mt, mt_cpu = (mt_from_sdr(*np.radians(b.params[sdr].astype(np.float64)))
+                  for b in (best, best_cpu))
+    np.testing.assert_allclose(mt, mt_cpu, atol=1e-6)
+    assert steps[-2].out_config["min_misfit"] == pytest.approx(
+        steps_cpu[-2].out_config["min_misfit"], rel=1e-5)
