@@ -13,7 +13,9 @@ and fails on the first phase that goes wrong:
 1. build the CUDA kernels from kiwi_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc process per source, all started together;
 2. build the 200x200x10 analytic fullspace GF store with the port's
-   elseis (cached under build/kiwi_tpu_torch/);
+   GFDBBuilder in worker processes, its first and last two columns held
+   exactly against elseis's direct build (cached under
+   build/kiwi_tpu_torch/);
 3. point sweeps: set up the unfiltered and the band-pass-filtered sweeps
    (10 `ned` receivers at 3-4 km, point bilateral source, floating_l1norm
    over +-1 s, 3610 strikes x 4 = 14,440 rows per call), capture the fused
@@ -108,7 +110,26 @@ and fails on the first phase that goes wrong:
    there; then one autokiwi cycle (pull, prepare through
    prepare.save_kiwi_dataset, process as `kiwi_main --device cuda work` at
    grid_step_deg 30 in a child process, report): the done file present,
-   no fail file;
+   no fail file; then the host paths, where no kernel may launch: gfdb
+   (the store's configuration built again through the port's GFDBBuilder
+   in spawned workers, exactly get_store()'s store; then cli.gfdb_tools
+   info, extract of three nodes and build_ahfull of five nodes on stdin,
+   each exactly the store's), acquisition (the finite session's
+   synthetics as MiniSEED behind a local FDSN event/station/dataselect
+   service on 127.0.0.1, fetched by fdsn_catalog and fetch_dataset through
+   the default urllib opener: every file byte for byte what was sent), web
+   (kiwi_tpu_torch.web.serve on the card in a thread: the landing page, 8
+   calculates of the finite fault at strikes 91 + 10 k in one session, one
+   each of moment_tensor, circular, point_lp and eikonal in another, then
+   /traces, result.json and /source3d.json of each source type; no error
+   page, no non-200; without matplotlib no PNG and the skip named on the
+   page; seconds per calculate, plan_builds) and the small tools
+   (source_info, eulermt, crust, differential_azidist, ahfull); then
+   cli.tools eikonal_benchmark 300 on the card, which must launch
+   eik_sweep (its two lines logged), and the kernel held bit for bit
+   against its plain version on the operands of its timed call (one 300 x
+   300 grid, 8 rounds: the first design, above the shared-memory limit),
+   its device time per launch beside its chain floor;
 7. run the first 16 strikes of each sweep, the first 32 models of each
    finite configuration, the first and last 32 of the grid, the LM start
    and end, and the first 8 radii on a CPU Engine and require 1e-5
@@ -123,7 +144,9 @@ and fails on the first phase that goes wrong:
    MINI_GRADIENT's answer from there (steps and starts exactly, the
    misfit within 1e-5); the pipeline SDR tuner's first and last 32 models
    on a CPU engine set up from the same data directory (misfits and norms
-   at 1e-5);
+   at 1e-5); the web phase's first generation against an Engine on the CPU
+   set up from the same form (the same rows and itmin, values at 1e-5 of
+   each row's largest);
 8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
    eikonal calls, 2 grid computes, 2 LM runs from the start, 2 timed
    mini.inp blocks, 1 protocol session, 2 gradient calls of 64 rows and 2
@@ -160,6 +183,13 @@ KIWIBENCH_STF = np.array(
     [0, 0, 0, 0, 0, 0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1, 1, 1, 1, 1],
     dtype=np.float64,
 )  # benchmark/kiwibench.py:50-70
+# the benchmark store (benchmark/kiwibench.py:45-92): 200 x 200 nodes at 50 m
+STORE_GRID = dict(nx=200, nz=200, dt=0.1, dx=50.0, dz=50.0, firstx=50.0, firstz=0.0)
+MATERIAL = (2300.0, 3200.0, 1600.0)  # rho, alpha, beta
+BUILD_WORKERS = min(16, os.cpu_count() or 1)
+# blocks of two distance columns: 100 blocks keep every worker busy to the
+# end although the far columns' traces take longest
+BUILD_BLOCK_NX = 2
 BASE = np.array([0, 0, 0, 5000.0, 1e12, 91.0, 87.0, 164.0, 0.0, 0.0, 0.0, 0.0, 2500.0, 0.2],
                 dtype=np.float32)
 # bench.py:270-273: 900 + 700 m long, 1000 m wide -> (13, 5, 3) = 195 centroids
@@ -265,20 +295,56 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def get_store():
+def build_store_parallel():
+    """The benchmark store through the port's GFDBBuilder and its analytic
+    fullspace backend in BUILD_WORKERS worker processes."""
+    from kiwi_tpu_torch.gf.builder import GFDBBuilder, ahfull_backend
+
+    return GFDBBuilder(ahfull_backend(MATERIAL, KIWIBENCH_STF, STORE_GRID["dt"]), ng=10,
+                       **STORE_GRID, nworkers=BUILD_WORKERS, block_nx=BUILD_BLOCK_NX).build()
+
+
+def check_direct_columns(store, cols):
+    """The store's consecutive columns cols against elseis.build_ahfull_store
+    of those columns alone (the direct build), exactly; its seconds."""
     from kiwi_tpu_torch.gf import elseis
+
+    g = STORE_GRID
+    t0 = time.perf_counter()
+    part = elseis.build_ahfull_store(
+        nx=len(cols), nz=g["nz"], dt=g["dt"], dx=g["dx"], dz=g["dz"],
+        firstx=g["firstx"] + cols[0] * g["dx"], firstz=g["firstz"], material=MATERIAL,
+        stf=KIWIBENCH_STF)
+    seconds = time.perf_counter() - t0
+    sub = slice(cols[0], cols[-1] + 1)
+    nt = part.data.shape[-1]
+    if not (np.array_equal(part.itmin, store.itmin[sub])
+            and np.array_equal(part.nsamples, store.nsamples[sub])
+            and np.array_equal(part.data, store.data[sub, ..., :nt])
+            and (store.data[sub, ..., nt:] == store.data[sub, ..., nt - 1:nt]).all()):
+        fail(f"store: columns {cols} differ from their direct build")
+    return seconds
+
+
+def get_store():
+    """The benchmark store and its build seconds (0 when cached): built
+    through the parallel builder, its first and last two columns held
+    exactly against their direct build."""
     from kiwi_tpu_torch.gf.store import GFStore
 
     if os.path.exists(STORE_CACHE):
         return GFStore.load(STORE_CACHE), 0.0
     t0 = time.perf_counter()
-    store = elseis.build_ahfull_store(
-        nx=200, nz=200, dt=0.1, dx=50.0, dz=50.0, firstx=50.0, firstz=0.0,
-        material=(2300.0, 3200.0, 1600.0), stf=KIWIBENCH_STF,
-    )
+    store = build_store_parallel()
+    seconds = time.perf_counter() - t0
+    nx = STORE_GRID["nx"]
+    direct = sum(check_direct_columns(store, cols) for cols in ([0, 1], [nx - 2, nx - 1]))
+    log(f"phase store: built by GFDBBuilder ({BUILD_WORKERS} workers) in {seconds:.3f} s; columns "
+        f"0, 1, {nx - 2}, {nx - 1} exactly their direct build ({direct:.3f} s for 4 columns "
+        f"directly)")
     os.makedirs(os.path.dirname(STORE_CACHE), exist_ok=True)
     store.save(STORE_CACHE)
-    return store, time.perf_counter() - t0
+    return store, seconds
 
 
 def make_session(store, device):
@@ -382,21 +448,34 @@ def device_ms(fn, reps, names):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times, others = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if any(n in e.name for n in names):
-            times.append(e.time_range.elapsed_us())
-        else:
-            others[e.name] = others.get(e.name, 0.0) + 1.0 / reps
-    if not times:
-        fail(f"no device kernel named like {names} in the trace")
-    return sum(times) / len(times) / 1e3, others
+    # a trace that holds none of the kernels is taken once more (a trace
+    # without the device events of launched kernels has been seen once on
+    # an H100); a second such trace fails
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times, others = [], {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if any(n in e.name for n in names):
+                times.append(e.time_range.elapsed_us())
+            else:
+                others[e.name] = others.get(e.name, 0.0) + 1.0 / reps
+        if times:
+            return sum(times) / len(times) / 1e3, others
+        log(f"  device_ms: trace {attempt} holds no device kernel named like {names} "
+            f"({len(others)} other device event names: {sorted(others)[:4]})")
+    fail(f"no device kernel named like {names} in the trace")
+
+
+def max_sm_mhz():
+    """The card's maximum SM clock, MHz (nvidia-smi)."""
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                 "--format=csv,noheader,nounits"], capture_output=True,
+                                text=True, check=True).stdout.split()[0])
 
 
 def capture(module, name, run, key=None):
@@ -776,9 +855,7 @@ def check_eikonal_kernel(eng, radii, results):
     sms = torch.cuda.get_device_properties(speed.device).multi_processor_count
     per_sm = max(1, min(228 * 1024 // (shared + 1024), 64 // warps))
     waves = -(-B // (per_sm * sms))
-    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                "--format=csv,noheader,nounits"], capture_output=True,
-                               text=True, check=True).stdout.split()[0])
+    mhz = max_sm_mhz()
     floor_ms = waves * steps * EIK_CHAIN_CYCLES / (mhz * 1e3)
     log(f"  eik_sweep: kernel {rec['ms']:.4f} ms = {waves} waves x {steps} steps x "
         f"{rec['ms'] / (waves * steps) * 1e3:.4f} us per step ({per_sm} blocks per SM; wrapper "
@@ -1564,6 +1641,455 @@ kiwi_config = Config(base_config, processing_dir="%(event_dir)s/work",
     return seconds
 
 
+def stdout_of(fn, argv, stdin=""):
+    """What fn(argv) prints, with `stdin` as its standard input."""
+    import contextlib
+
+    buf = io.StringIO()
+    real = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+    finally:
+        sys.stdin = real
+    return buf.getvalue()
+
+
+def run_gfdb(store):
+    """The benchmark store's configuration built again through the port's
+    GFDBBuilder in worker processes, exactly equal to get_store()'s; then
+    kiwi_tpu_torch.cli.gfdb_tools on the saved .npz: info (its numbers
+    against the store), extract of three nodes (MiniSEED, equal to
+    store.get_trace) and build_ahfull of five nodes on stdin into an empty
+    store of the same grid (equal to the same nodes of the store)."""
+    from kiwi_tpu_torch.cli import gfdb_tools
+    from kiwi_tpu_torch.gf.store import GFStore, GFStoreBuilder
+    from kiwi_tpu_torch.gf.trace import fnint
+    from kiwi_tpu_torch.io import readseismogram
+
+    t0 = time.perf_counter()
+    built = build_store_parallel()
+    build_s = time.perf_counter() - t0
+    if not all(np.array_equal(getattr(built, k), getattr(store, k))
+               for k in ("data", "itmin", "nsamples")):
+        fail("gfdb: the parallel build differs from the benchmark store")
+    del built
+    work = os.path.join(HERE, "build", "kiwi_tpu_torch", "gfdb")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    t0 = time.perf_counter()
+    info = dict(line.split("=", 1) for line in stdout_of(gfdb_tools.gfdb_info, [STORE_CACHE]).split())
+    used = int((store.nsamples > 0).sum())
+    want = {"dt": store.dt, "dx": store.dx, "dz": store.dz, "firstx": store.firstx,
+            "firstz": store.firstz, "nchunks": 1, "nx": store.nx, "nz": store.nz, "ng": store.ng}
+    if (any(float(info[k]) != v for k, v in want.items())
+            or info["total_traces"] != f"{used}/{store.nx * store.nz * store.ng}"):
+        fail(f"gfdb info: {info} does not describe the store")
+
+    nx, nz = store.nx, store.nz
+    nodes = ((0, 0, 1), (nx // 2 - 1, nz // 2, 6), (nx - 1, nz - 1, 10))  # ix, iz, 1-based ig
+    lines = "".join(f"{store.firstx + ix * store.dx} {store.firstz + iz * store.dz} {ig} "
+                    f"'{os.path.join(work, f'extract-{ix}-{iz}-{ig}.mseed')}'\n"
+                    for ix, iz, ig in nodes)
+    answers = stdout_of(gfdb_tools.gfdb_extract, [STORE_CACHE], lines)
+    if answers != "ok\n" * len(nodes):
+        fail(f"gfdb extract answered {answers!r}")
+    for ix, iz, ig in nodes:
+        values, toffset, deltat = readseismogram(
+            os.path.join(work, f"extract-{ix}-{iz}-{ig}.mseed"))
+        want_v, want_it = store.get_trace(ix, iz, ig - 1)
+        it = int(fnint(np.float32(toffset) / np.float32(store.dt)))
+        if not (np.array_equal(values, want_v) and it == want_it and abs(deltat - store.dt) < 1e-9):
+            fail(f"gfdb extract: node ({ix}, {iz}, {ig}) differs from store.get_trace")
+
+    empty = os.path.join(work, "ahfull.npz")
+    GFStoreBuilder(store.nx, store.nz, store.ng, store.dt, store.dx, store.dz, store.firstx,
+                   store.firstz).build().save(empty)
+    np.savetxt(os.path.join(work, "material"), [MATERIAL])
+    np.savetxt(os.path.join(work, "stf"),
+               np.column_stack([np.arange(KIWIBENCH_STF.size) * store.dt, KIWIBENCH_STF]))
+    ahnodes = ((0, 0), (nx * 2 // 7, 3), (nx * 3 // 5, nz // 2 + 1), (13, nz * 9 // 10),
+               (nx - 1, nz - 1))
+    stdout_of(gfdb_tools.gfdb_build_ahfull,
+              [empty, os.path.join(work, "material"), os.path.join(work, "stf")],
+              "".join(f"{store.firstx + ix * store.dx} {store.firstz + iz * store.dz} T T\n"
+                      for ix, iz in ahnodes))
+    got = GFStore.load(empty)
+    for ix, iz in ahnodes:
+        for ig in range(store.ng):
+            a, b = got.get_trace(ix, iz, ig), store.get_trace(ix, iz, ig)
+            if (a is None) != (b is None) or (a is not None and not (
+                    a[1] == b[1] and np.array_equal(a[0], b[0]))):
+                fail(f"gfdb build_ahfull: node ({ix}, {iz}, {ig}) differs from the store")
+    if int((got.nsamples > 0).sum()) != sum(int((store.nsamples[ix, iz] > 0).sum())
+                                            for ix, iz in ahnodes):
+        fail("gfdb build_ahfull: traces at other nodes than those asked for")
+    tools_s = time.perf_counter() - t0
+    log(f"phase gfdb: {store.data.shape} through GFDBBuilder with {BUILD_WORKERS} spawned "
+        f"workers (blocks of {BUILD_BLOCK_NX} columns) in {build_s:.3f} s, exactly the benchmark "
+        f"store; gfdb_tools info ({used} traces), extract of {len(nodes)} nodes, build_ahfull of "
+        f"{len(ahnodes)} nodes in {tools_s:.3f} s, each exactly the store's")
+    return build_s
+
+
+FDSN_EVENT_TIME = 1700000000.0  # 2023-11-14T22:13:20
+FDSN_CHANNELS = {"n": "BHN", "e": "BHE", "d": "BHZ"}
+
+
+def run_acquisition(store, device="cuda"):
+    """The finite session's synthetics at the 10 `ned` receivers as the
+    MiniSEED payloads of a local FDSN service (event, station and
+    dataselect text endpoints of a ThreadingHTTPServer on 127.0.0.1, one
+    channel each of BHN/BHE/BHZ), fetched through the port's fdsn_catalog
+    and fetch_dataset with the default urllib opener (real HTTP round
+    trips): every raw file byte for byte what the server sent, the samples
+    the synthetics', stations.txt and event.txt written."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from kiwi_tpu_torch import acquisition as acq
+    from kiwi_tpu_torch.io import readseismogram, writeseismogram
+
+    eng = make_session(store, device)
+    eng.set_source_params("bilateral", FINITE_BASE)
+    traces = eng.get_synthetic_seismograms()
+    work = os.path.join(HERE, "build", "kiwi_tpu_torch", "acquisition")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    payloads, samples = {}, {}
+    fn = os.path.join(work, "payload.mseed")
+    for (values, itmin), (irec, comp) in zip(traces, eng._rc_layout()):
+        key = (f"S{irec + 1:02d}", FDSN_CHANNELS[comp])
+        writeseismogram(fn, "mseed", values, FDSN_EVENT_TIME + itmin * store.dt, store.dt,
+                        network="XX", station=key[0], channel=key[1])
+        with open(fn, "rb") as f:
+            payloads[key] = f.read()
+        samples[key] = values
+    t = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(FDSN_EVENT_TIME))
+    event_text = ("#EventID|Time|Latitude|Longitude|Depth/km|Author|Catalog|Contributor|"
+                  "ContributorID|MagType|Magnitude|MagAuthor|EventLocationName\n"
+                  f"ev-smoke|{t}.00|30.0|70.0|5.0|XX|XX|XX|1|MW|5.3|XX|SMOKE REGION\n")
+    station_text = "#Network|Station|Location|Channel|Latitude|Longitude|Elevation|Depth\n" + "".join(
+        f"XX|S{irec + 1:02d}||{ch}|{float(r.lat_deg)!r}|{float(r.lon_deg)!r}|0.0|0.0\n"
+        for irec, r in enumerate(eng.receivers) for ch in FDSN_CHANNELS.values())
+    sent = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):
+            url = urllib.parse.urlparse(self.path)
+            q = dict(urllib.parse.parse_qsl(url.query))
+            body = {"/fdsnws/event/1/query": event_text.encode(),
+                    "/fdsnws/station/1/query": station_text.encode()}.get(url.path)
+            if url.path == "/fdsnws/dataselect/1/query":
+                body = payloads.get((q.get("station"), q.get("channel")))
+            if body is None:
+                self.send_error(404)
+                return
+            sent.append(url.path)
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    datadir = os.path.join(work, "data")
+    try:
+        t0 = time.perf_counter()
+        events = acq.fdsn_catalog(base, min_magnitude=5.0)(
+            time_range=(FDSN_EVENT_TIME - 3600.0, FDSN_EVENT_TIME + 3600.0))
+        if [e.name for e in events] != ["ev-smoke"]:
+            fail(f"acquisition: the catalog gave {[e.name for e in events]}")
+        stations, paths = acq.fetch_dataset(
+            acq.as_acquisition_event(events[0]), datadir,
+            waveform_source=acq.FDSNWaveforms(base), channels=tuple(FDSN_CHANNELS.values()),
+            dist_range_m=(0.0, 1.0e6))
+        seconds = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    if len(stations) != len(eng.receivers) or len(paths) != len(payloads):
+        fail(f"acquisition: {len(stations)} stations, {len(paths)} files")
+    for path in paths:
+        _net, sta, _loc, ch = os.path.basename(path)[len("raw-"):-len(".mseed")].split(".")
+        with open(path, "rb") as f:
+            if f.read() != payloads[(sta, ch)]:
+                fail(f"acquisition: {path} is not what the server sent")
+        if not np.array_equal(readseismogram(path)[0], samples[(sta, ch)]):
+            fail(f"acquisition: {path} does not hold the synthetic's samples")
+    for name in ("stations.txt", "event.txt"):
+        if not os.path.exists(os.path.join(datadir, name)):
+            fail(f"acquisition: no {name}")
+    log(f"phase acquisition: catalog and {len(paths)} MiniSEED files of {len(stations)} "
+        f"stations over HTTP ({len(sent)} requests) in {seconds:.4f} s; every file byte-equal "
+        f"to what the server sent")
+    return seconds
+
+
+# the web phase's second session: one calculate of each other source type on
+# the benchmark store (the eikonal rupture below the default constraint
+# plane at 1500 m)
+WEB_SOURCES = (
+    ("moment_tensor", {"depth": 5000.0, "mxx": 1e12, "myy": -5e11, "mzz": -5e11,
+                       "mxy": 3e11, "mxz": 1e11, "myz": 2e11, "rise-time": 0.2}),
+    ("circular", {"depth": 5000.0, "moment": 1e12, "strike": 91.0, "dip": 87.0,
+                  "slip-rake": 164.0, "radius": 500.0, "rupture-velocity": 2500.0,
+                  "rise-time": 0.2}),
+    ("point_lp", {"depth": 5000.0, "moment": 1e12, "excitation-time": 2.0,
+                  "main-period": 0.5}),
+    ("eikonal", {"depth": 3000.0, "moment": 1e12, "strike": 30.0, "dip": 80.0,
+                 "slip-rake": 164.0, "bord-radius": 400.0, "nukl-shift-x": 50.0,
+                 "nukl-shift-y": -50.0, "rel-rupture-velocity": 0.9, "rise-time": 0.3}),
+)
+WEB_GENERATIONS = 8  # FINITE_BASE at strikes 91 + 10 k
+
+
+def web_receivers(store):
+    """make_session's receivers as the form's text, one `lat lon ned` a line."""
+    return "\n".join(f"{float(r.lat_deg)!r} {float(r.lon_deg)!r} {r.components}"
+                     for r in make_session(store, "cpu").receivers)
+
+
+def web_form(session, sourcetype, params, receivers):
+    from kiwi_tpu_torch.sources import get_source_model
+
+    model = get_source_model(sourcetype)
+    form = {"session": str(session), "sourcetype": sourcetype, "source_latitude": "30.0",
+            "source_longitude": "70.0", "effective_dt": "0.1", "interpolation": "bilinear",
+            "receivers": receivers, "calculate": "1"}
+    form.update({f"param.{n}": repr(float(params[n])) for n in model.names if n in params})
+    return form
+
+
+def engine_from_form(store, form, device):
+    """An Engine set up from a web form as SeismogramApp.calculate sets up
+    its own (the reference for the web phase)."""
+    from kiwi_tpu_torch.engine import Engine, Receiver
+    from kiwi_tpu_torch.sources import get_source_model
+
+    model = get_source_model(form["sourcetype"])
+    eng = Engine(store, device=device)
+    eng.set_receivers([Receiver(float(w[0]), float(w[1]), w[2])
+                       for w in (line.split() for line in form["receivers"].splitlines())])
+    eng.set_source_location(float(form["source_latitude"]), float(form["source_longitude"]), 0.0)
+    eng.set_effective_dt(float(form["effective_dt"]))
+    eng.set_local_interpolation(True)
+    eng.set_source_params(form["sourcetype"], np.array(
+        [float(form.get(f"param.{n}", model.defaults[i])) for i, n in enumerate(model.names)],
+        dtype=np.float32))
+    return eng
+
+
+def run_web(store, out, device="cuda"):
+    """kiwi_tpu_torch.web.serve(store, ..., device="cuda") in a thread,
+    driven over HTTP: the landing page, WEB_GENERATIONS calculates of
+    FINITE_BASE (strikes 91 + 10 k) in session 1 and one of each of
+    WEB_SOURCES in session 2, then /traces, result.json and /source3d.json
+    of each source type.  No answer may be a non-200 or an error page.
+    out["web"]: the seconds per calculate (host clock, request to
+    response), the first form and its result rows, the app."""
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    from kiwi_tpu_torch.plotting import matplotlib_missing
+    from kiwi_tpu_torch.web import serve
+
+    work = os.path.join(HERE, "build", "kiwi_tpu_torch", "web")
+    shutil.rmtree(work, ignore_errors=True)
+    srv = serve(store, work, port=0, device=device)
+    app = srv.RequestHandlerClass.app
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def request(path, form=None):
+        data = None if form is None else urllib.parse.urlencode(form).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + path, data=data, timeout=300) as r:
+            body, status = r.read(), r.status
+        seconds = time.perf_counter() - t0
+        text = body.decode(errors="replace")
+        if status != 200 or "<h1>error</h1>" in text or "<h1>card failure</h1>" in text:
+            fail(f"web: {path} answered {status}: {text[:400]}")
+        return text, seconds
+
+    receivers = web_receivers(store)
+    nrows = 3 * len(receivers.splitlines())
+    finite = dict(zip(("time", "north-shift", "east-shift", "depth", "moment", "strike", "dip",
+                       "slip-rake", "rupture-rake", "length-a", "length-b", "width",
+                       "rupture-velocity", "rise-time"), FINITE_BASE.tolist()))
+    calcs = [(1, web_form(1, "bilateral", {**finite, "strike": 91.0 + 10.0 * k}, receivers))
+             for k in range(WEB_GENERATIONS)]
+    calcs += [(2, web_form(2, name, p, receivers)) for name, p in WEB_SOURCES]
+    try:
+        landing, _ = request("/?session=1")
+        if "none yet" not in landing or 'name="param.moment"' not in landing:
+            fail("web: the landing page is not the form")
+        seconds, bodies = [], []
+        for session, form in calcs:
+            body, s = request("/", form)
+            gens = app.generations(session)
+            if f"generation: {gens[-1]}" not in body:
+                fail(f"web: calculate of {form['sourcetype']} did not answer its generation")
+            seconds.append(s)
+            bodies.append(body)
+        views = [(1, 1, "bilateral")] + [(2, g + 1, name) for g, (name, _p) in
+                                         enumerate(WEB_SOURCES)]
+        for session, gen, name in views:
+            q = f"session={session}&generation={gen}"
+            request(f"/traces?{q}")
+            result = json.loads(request(f"/file?{q}&name=result.json")[0])
+            cents = json.loads(request(f"/source3d.json?{q}")[0])
+            if (cents["sourcetype"] != name or not cents["north"]
+                    or len(result["traces"]) != nrows):
+                fail(f"web: session {session} generation {gen} ({name}): "
+                     f"{len(result['traces'])} rows, {len(cents['north'])} centroids")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    pngs = sorted(f for dp, _d, fs in os.walk(work) for f in fs if f.endswith(".png"))
+    missing = matplotlib_missing()
+    if missing is not None and (pngs or any("figures skipped" not in b for b in bodies)):
+        fail(f"web: without matplotlib, {len(pngs)} PNG files or a page without the skip note")
+    log(f"phase web: {len(calcs)} calculates ({WEB_GENERATIONS} of the finite fault, then "
+        f"{', '.join(n for n, _p in WEB_SOURCES)}): first {seconds[0]:.4f} s (plan), then "
+        f"{np.median(seconds[1:WEB_GENERATIONS]):.4f} s median per finite calculate "
+        f"(min {min(seconds[1:WEB_GENERATIONS]):.4f}, max {max(seconds[1:WEB_GENERATIONS]):.4f}); "
+        + ", ".join(f"{n} {s:.4f} s" for (n, _p), s in zip(WEB_SOURCES, seconds[WEB_GENERATIONS:]))
+        + f"; plan_builds {app.engine.plan_builds}; figures: "
+        + (f"skipped ({missing})" if missing else f"{len(pngs)} PNG files"))
+    out["web"] = {"seconds": seconds, "form": calcs[0][1], "rows": app._load(1, 1)["traces"]}
+    return float(np.median(seconds[1:WEB_GENERATIONS]))
+
+
+def compare_web(web, store):
+    """The web phase's first generation against an Engine on the CPU set up
+    from the same form: the same rows (receiver, component) in the same
+    order, the same itmin, values within TOL of each row's largest."""
+    want = engine_from_form(store, web["form"], "cpu")
+    traces, layout = want.get_synthetic_seismograms(), want._rc_layout()
+    got = web["rows"]
+    if [(r["receiver"], r["component"], r["itmin"]) for r in got] != [
+            (irec + 1, c, it) for (_v, it), (irec, c) in zip(traces, layout)]:
+        fail("card-vs-cpu web: other rows or itmin than the CPU engine's")
+    worst = 0.0
+    for row, (values, _it) in zip(got, traces):
+        g = np.asarray(row["values"], np.float64)
+        if g.shape != values.shape:
+            fail(f"card-vs-cpu web: row {row['receiver']}{row['component']} has {g.size} samples, "
+                 f"the CPU's {values.size}")
+        worst = max(worst, float(np.abs(g - values).max() / max(np.abs(values).max(), 1e-30)))
+    log(f"phase card-vs-cpu web: generation 1, {len(got)} rows, max diff {worst:.3e} of each "
+        f"row's largest value")
+    if not worst <= TOL:
+        fail(f"card-vs-cpu web: {worst:.3e} > {TOL}")
+
+
+def run_small_tools():
+    """source_info, eulermt, crust, differential_azidist and ahfull (two
+    sources, three receivers, MiniSEED) of kiwi_tpu_torch.cli.tools, with
+    their stdout checked for their lines."""
+    from kiwi_tpu_torch.cli import tools
+
+    work = os.path.join(HERE, "build", "kiwi_tpu_torch", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tables = {"sources": [[0, 0, 1000, 1e12, -1e12, 0, 3e11, 0, 0],
+                          [200, -100, 1100, 0, 0, 0, 0, 5e11, -2e11]],
+              "receivers": [[2000, 0, 0], [1500, 1500, 0], [-800, 2500, 300]],
+              "material": [MATERIAL],
+              "stf": np.column_stack([np.arange(KIWIBENCH_STF.size) * 0.1, KIWIBENCH_STF])}
+    for name, rows in tables.items():
+        np.savetxt(os.path.join(work, name), rows)
+    t0 = time.perf_counter()
+    runs = (
+        (tools.source_info, [], ("source: bilateral", "source: eikonal", "parameter defaults:")),
+        (tools.eulermt, ["91", "87", "164"], ("NED (mxx myy mzz mxy mxz myz):",
+                                             "USE (mrr mtt mpp mrt mrp mtp):")),
+        (tools.crust, ["40", "30"], ("elevation:", "crustal thickness, ave. vp, vs, rho:",
+                                     "7-layer crustal profile")),
+        (tools.differential_azidist, [], ("worst distance error [m]:",
+                                          "worst backazimuth error [rad]:")),
+        (tools.ahfull, [*(os.path.join(work, n) for n in tables), "0.1",
+                        os.path.join(work, "ahfull"), "mseed"], ("wrote 3 x 3 seismograms",)),
+    )
+    for fn, argv, lines in runs:
+        text = stdout_of(fn, argv)
+        if any(line not in text for line in lines):
+            fail(f"tools {fn.__name__} {' '.join(argv)}: printed {text[:300]!r}")
+    if len([f for f in os.listdir(work) if f.startswith("ahfull-")]) != 9:
+        fail("tools ahfull: not 9 seismogram files")
+    seconds = time.perf_counter() - t0
+    log(f"phase tools: source_info, eulermt 91 87 164, crust 40 30, differential_azidist and "
+        f"ahfull (2 sources, 3 receivers) in {seconds:.3f} s, each printed its lines")
+    return seconds
+
+
+def run_eikonal_benchmark(out, device="cuda"):
+    """kiwi_tpu_torch.cli.tools eikonal_benchmark 300 on the card (its
+    default device): its two lines, and the operands of its timed solve
+    (out["eikbench"])."""
+    from kiwi_tpu_torch import eikonal
+    from kiwi_tpu_torch.cli import tools
+
+    lines = []
+    seen = capture(eikonal, "sweep_solve_batch",
+                   lambda: lines.extend(stdout_of(tools.eikonal_benchmark, ["300"] + (
+                       [] if device == "cuda" else ["--device", device])).splitlines()))
+    if len(lines) != 2 or len(seen) != 2 or not lines[1].startswith("device sweep  300x300: "):
+        fail(f"eikonal_benchmark: printed {lines}, {len(seen)} solves")
+    for line in lines:
+        log(f"phase eikonal_benchmark: {line}")
+    out["eikbench"] = {"lines": lines, "operands": seen[-1]}
+    return float(lines[1].split(":")[1].split()[0])
+
+
+def check_eikbench_kernel(bench):
+    """The eikonal_benchmark's timed solve (1 x 300 x 300, 8 rounds: above
+    the shared-memory limit, the kernel's first design) against the plain
+    version on the card, bit for bit, with the kernel's device time per
+    launch beside its chain floor."""
+    import torch
+
+    from kiwi_tpu_torch.ops import eik_sweep as es
+
+    (speed, delta, first, ip), kw = bench["operands"]
+    n_rounds = kw["n_rounds"]
+    B, nx, ny = speed.shape
+    got = es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds)
+    t0 = time.perf_counter()
+    want = es.sweep_solve_batch_reference(speed, delta, first, ip, n_rounds=n_rounds)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    reached = want < 1e29
+    ndiff = int((got != want).sum())
+    log(f"  eik_sweep (eikonal_benchmark operands, B={B} nx={nx} ny={ny} n_rounds={n_rounds}): "
+        f"{int(reached.sum())} reached cells of {want.numel()}, cells that differ from the plain "
+        f"version: {ndiff} (plain version {plain_s:.2f} s)")
+    if ndiff or not torch.equal(got < 1e29, reached):
+        fail(f"eik_sweep differs from its plain version on eikonal_benchmark's operands in "
+             f"{ndiff} cells (it must equal it)")
+    ms, _ = device_ms(lambda: es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds),
+                      5, KERNELS["eik_sweep"])
+    steps = (nx + ny - 1) * 4 * n_rounds
+    mhz = max_sm_mhz()
+    floor_ms = steps * EIK_CHAIN_CYCLES / (mhz * 1e3)
+    log(f"  eik_sweep (eikonal_benchmark): kernel {ms:.4f} ms per launch, {steps} steps x "
+        f"{ms / steps * 1e3:.4f} us per step; chain floor {floor_ms:.4f} ms ({steps} steps x "
+        f"{EIK_CHAIN_CYCLES} cycles at the {mhz:.0f} MHz maximum SM clock)")
+
+
 def compare_protocol(prot):
     """MINI_SESSION on a CPU server against the card's answers (each
     numeric answer at TOL of its largest value, shifts exactly) and files
@@ -1865,15 +2391,24 @@ def main():
         ("pipeline", ("window_synth",), lambda: run_pipeline(store, inv)),
         # kiwi_main runs in autokiwi's child process: its launches count there
         ("autokiwi", (), lambda: run_autokiwi(inv)),
+        # host paths: the builder's workers, the FDSN client, the web forward
+        # (plain synthesis, host FMM) and the small tools launch no kernel
+        ("gfdb", (), lambda: run_gfdb(store)),
+        ("acquisition", (), lambda: run_acquisition(store)),
+        ("web", (), lambda: run_web(store, inv)),
+        ("tools", (), run_small_tools),
+        ("eikonal_benchmark", ("eik_sweep",), lambda: run_eikonal_benchmark(inv)),
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
     launches = {name: sum(c[name] for c in counts.values()) for name in REPLACES}
     # the gradient differentiates the plain formulation: no kernel; the long
     # window's plan has no window kernel
-    if any(counts["gradient"].values()) or counts["long_window"]["window_synth"]:
-        fail(f"kernels launched where none may be: gradient {counts['gradient']}, "
-             f"long window {counts['long_window']}")
+    if (any(counts[label][k] for label in ("gradient", "gfdb", "acquisition", "web", "tools")
+            for k in counts[label]) or counts["long_window"]["window_synth"]):
+        fail("kernels launched where none may be: " + ", ".join(
+            f"{label} {counts[label]}" for label in ("gradient", "long_window", "gfdb",
+                                                     "acquisition", "web", "tools")))
     forms = {label: eng._plan["formulation"] for label, eng in (
         *engines.items(), *finite.items(), ("eikonal", eik), ("lm", lm), ("gradient", grad_eng),
         ("long_window", long_eng), ("pipeline", inv["pipeline"]["engine"]))}
@@ -1894,6 +2429,9 @@ def main():
     compare_gradient(inv["gradient"], store)
     compare_long_window(long_eng, long_store)
     compare_pipeline(inv["pipeline"], store)
+    compare_web(inv["web"], store)
+    log("phase kernel-vs-plain eik_sweep (eikonal_benchmark call operands):")
+    check_eikbench_kernel(inv["eikbench"])
 
     for label, eng in engines.items():
         cpu = make_engine(store, "cpu", filtered=label == "filtered")
@@ -1955,11 +2493,18 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("models/s (lm: rows evaluated per second) "
         + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()
-                    if k not in ("protocol", "gradient", "pipeline", "autokiwi"))
+                    if k not in ("protocol", "gradient", "pipeline", "autokiwi", "gfdb",
+                                 "acquisition", "web", "tools", "eikonal_benchmark"))
         + f"; gradient {mps['gradient']:.2f} steps/s ({GRAD_STARTS} rows a step) ({smi})")
     log(f"mini_inp_seconds {mps['protocol']:.6f} ({smi})")
     log(f"pipeline: SDR grid {mps['pipeline']:.0f} models/s, window_synth launches "
         f"{counts['pipeline']['window_synth']}; autokiwi cycle {mps['autokiwi']:.2f} s ({smi})")
+    web = inv["web"]["seconds"]
+    log(f"store build {build_s:.3f} s, gfdb phase parallel build {mps['gfdb']:.3f} s "
+        f"({BUILD_WORKERS} workers); FDSN fetch {mps['acquisition']:.4f} s; web calculate "
+        f"first {web[0]:.4f} s, then median {mps['web']:.4f} s; eikonal_benchmark 300 device "
+        f"sweep {mps['eikonal_benchmark']:.3f} s, eik_sweep launches "
+        f"{counts['eikonal_benchmark']['eik_sweep']} ({smi})")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -61,6 +61,31 @@ def dataspan(values, itmin=0):
     return first + itmin, last + itmin
 
 
+def multiply_add_ref(acc, acc_it0, data, itmin, factor=1.0, rshift=0.0):
+    """Host reference of trace_multiply_add on dense numpy arrays
+    (sparse_trace.f90:597-707): adds factor x the trace, shifted by rshift
+    samples (linear interpolation for the fraction), into acc, whose first
+    sample has absolute index acc_it0 (fixed size, like
+    trace_multiply_add_nogrow).  Zero before the trace, its last value after
+    it.  Returns acc."""
+    acc = np.asarray(acc)
+    data = np.asarray(data, dtype=acc.dtype)
+    nt = data.shape[0]
+    ish = int(np.floor(rshift))
+    frac = float(rshift) - ish
+
+    def ext(j):  # absolute index sample with zero-left/edge-right extension
+        rel = j - (itmin + ish)
+        out = np.zeros(j.shape, dtype=acc.dtype)
+        inside = rel >= 0
+        out[inside] = data[np.minimum(rel[inside], nt - 1)]
+        return out
+
+    j = np.arange(acc_it0, acc_it0 + acc.shape[0])
+    acc += factor * ((1.0 - frac) * ext(j) + frac * ext(j - 1))
+    return acc
+
+
 def pack_trace(values, it0):
     """Dense samples starting at absolute index it0 -> (trimmed values, itmin)
     (trace_pack equivalence, sparse_trace.f90:443-555)."""

@@ -615,3 +615,70 @@ def test_kiwi_main_work_on_the_card(cuda_dev, tmp_path, monkeypatch):
     np.testing.assert_allclose(mt, mt_cpu, atol=1e-6)
     assert steps[-2].out_config["min_misfit"] == pytest.approx(
         steps_cpu[-2].out_config["min_misfit"], rel=1e-5)
+
+
+def test_eikonal_benchmark_on_the_card(cuda_dev, monkeypatch, capsys):
+    """cli.tools.eikonal_benchmark at its default 300 x 300 grid, 8 rounds
+    (above the shared-memory limit: the kernel's first design): the kernel
+    launched, and equal bit for bit to its plain version on the operands of
+    the tool's own calls."""
+    from kiwi_tpu_torch import eikonal
+    from kiwi_tpu_torch.cli import tools
+
+    seen = []
+    real = eikonal.sweep_solve_batch
+
+    def recorder(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(eikonal, "sweep_solve_batch", recorder)
+    before = eik_sweep.launches["eik_sweep"]
+    tools.eikonal_benchmark(["300"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2 and out[1].startswith("device sweep  300x300: ")
+    assert eik_sweep.launches["eik_sweep"] == before + len(seen) == before + 2
+    (speed, delta, first, ip), kw = seen[-1]
+    assert speed.is_cuda and tuple(speed.shape) == (1, 300, 300) and kw["n_rounds"] == 8
+    _eik_check((speed, delta, first, ip), 8)
+
+
+def test_web_calculate_on_the_card(cuda_dev, tmp_path):
+    """One web calculate of a finite bilateral fault on the card equals the
+    same calculate of a CPU app within 1e-5 of each row's largest value,
+    with the same rows and itmin; the source view's tables come to the
+    host."""
+    import json
+
+    from kiwi_tpu_torch.gf import elseis
+    from kiwi_tpu_torch.web import SeismogramApp
+
+    store = elseis.build_ahfull_store(
+        nx=40, nz=8, dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
+        material=(2300.0, 3200.0, 1600.0), stf=np.array([0, 0, 0.3, 0.7, 1, 1, 1.0]))
+    form = {"sourcetype": "bilateral", "source_latitude": "30.0", "source_longitude": "70.0",
+            "effective_dt": "0.1", "interpolation": "bilinear",
+            "receivers": "30.02 70.0 ned\n30.025 70.01 ne",
+            **{f"param.{k}": v for k, v in (("depth", "400"), ("moment", "1e12"),
+                                            ("strike", "91"), ("dip", "87"),
+                                            ("slip-rake", "164"), ("length-a", "300"),
+                                            ("length-b", "200"), ("width", "250"),
+                                            ("rupture-velocity", "2500"),
+                                            ("rise-time", "0.2"))}}
+    rows, cents = {}, {}
+    for device in ("cuda", "cpu"):
+        app = SeismogramApp(store, str(tmp_path / device), device=device)
+        assert app.engine.device.type == device
+        gen = app.calculate(1, dict(form))
+        rows[device] = app._load(1, gen)["traces"]
+        cents[device] = app.source_centroids(1, gen)
+    assert [(r["receiver"], r["component"], r["itmin"]) for r in rows["cuda"]] == [
+        (r["receiver"], r["component"], r["itmin"]) for r in rows["cpu"]]
+    for g, w in zip(rows["cuda"], rows["cpu"]):
+        g, w = np.asarray(g["values"]), np.asarray(w["values"])
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    for k in ("north", "east", "depth", "time", "weight"):
+        g, w = np.asarray(cents["cuda"][k]), np.asarray(cents["cpu"][k])
+        assert g.shape == w.shape and np.abs(g - w).max() <= 1e-5 * max(np.abs(w).max(), 1e-30)
+    json.dumps(cents["cuda"])
