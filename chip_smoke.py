@@ -129,7 +129,22 @@ and fails on the first phase that goes wrong:
    eik_sweep (its two lines logged), and the kernel held bit for bit
    against its plain version on the operands of its timed call (one 300 x
    300 grid, 8 rounds: the first design, above the shared-memory limit),
-   its device time per launch beside its chain floor;
+   its device time per launch beside its chain floor; then the
+   multi-device phase (kiwi_tpu_torch.parallel): 4 spawned ranks of one
+   gloo group share cuda:0, each with the finite session (and the lm
+   session for the gradient), and take one warm and 3 timed calls through
+   sharded_forward on a 4 x 1 mesh (256 models), gfshard.build_plan on
+   1 x 4 (distance shards: the 10 receivers in groups of 3/3/2/2, each
+   rank holding its group's GF window) and on 2 x 2 (255 models: one pad
+   row), and global_misfits_and_grad(mesh=) on 4 x 1 (the gradient
+   phase's 64 rows); window_synth and scan_sums launched in every rank
+   for each forward mesh (the gradient none), the 1 x 4 windows narrower
+   than the whole plan's, far-north and late batches refused with the
+   coverage ValueError in every rank, every rank holding the same rows,
+   and rank 0's against this process's unsharded card engine (misfits,
+   norms and global misfits at 1e-5 of the largest, shifts exactly; the
+   gradient at g 2e-5 and GRAD_TOL); models/s per mesh on the slowest
+   rank's host clock, 4 processes on one card (not a scaling number);
 7. run the first 16 strikes of each sweep, the first 32 models of each
    finite configuration, the first and last 32 of the grid, the LM start
    and end, and the first 8 radii on a CPU Engine and require 1e-5
@@ -158,7 +173,8 @@ and fails on the first phase that goes wrong:
 
 Prints one line per phase, then the
 card's name and power limit, the kernels' JSON line (each kernel's
-launches on the main paths, its error against its plain version, its
+launches on the main paths, the multi-device ranks' summed in, its
+error against its plain version, its
 device time per launch, the plain version's time, one PyTorch call's
 where one computes the same function, and its roofline bound from this
 run's shapes and data; the window kernel's numbers are those of the
@@ -243,6 +259,14 @@ GRAD_FREE = (5, 6, 7)  # strike, dip, slip-rake
 GRAD_OFFSET = np.array([5.0, -4.0, 6.0], np.float32)
 GRAD_STARTS, GRAD_SPREAD, GRAD_STEPS, GRAD_LR = 8, 0.1, 150, 0.03
 GRAD_TOL = 1e-4  # card vs CPU: gradient components, of the row's largest scaled one
+# the multi-device phase: MD_RANKS processes of one gloo group sharing the
+# card, each with the finite session, through the source-sharded forward
+# (4 x 1), the distance shards (1 x 4: 10 receivers in groups of 3/3/2/2),
+# both axes (2 x 2, a batch of MD_PAD_B rows: one pad row) and the sharded
+# gradient (4 x 1, the gradient phase's rows); MD_REPS timed calls each
+MD_RANKS = 4
+MD_PAD_B = 255
+MD_REPS = 3
 # plans outside the window kernel: an analytic store around the finite
 # session's source sampled at 2 ms, so that nt_out + s_len > T_MAX = 2048
 LONG_STORE = dict(nx=40, nz=26, dt=0.002, dx=100.0, dz=100.0, firstx=1500.0, firstz=3800.0)
@@ -532,8 +556,14 @@ def capture_operands(eng, strikes):
 
 
 def record_err(results, name, got, want, label):
-    err = float((got - want).abs().max())
-    rel = err / max(float(want.abs().max()), 1e-30)
+    return record_numbers(results, name, float((got - want).abs().max()),
+                          float(want.abs().max()), label)
+
+
+def record_numbers(results, name, err, scale, label):
+    """record_err of a comparison made elsewhere (a rank of the multidevice
+    phase): its max abs error and the plain version's largest |value|."""
+    rel = err / max(scale, 1e-30)
     log(f"  {name}: {label}: max abs err {err:.3e}, rel {rel:.3e}")
     if not np.isfinite(rel) or rel > TOL:
         fail(f"{name} disagrees with its plain version ({label}): rel err {rel:.3e} > {TOL}")
@@ -1135,6 +1165,189 @@ def run_gradient(eng, out):
     out["gradient"] = {"rows": rows, "g": g, "grad": grad, "m": m, "J": J,
                        "steps_per_s": nsteps / seconds}
     return nsteps / seconds
+
+
+def held_on_rank(windows, scans):
+    """The window and scan kernels against their plain versions on the
+    operands a rank captured (check_window's and check_scan's comparisons):
+    (name, label, max abs err, the plain version's largest |value|) each,
+    for the parent's record_numbers."""
+    from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
+
+    held = []
+    for args, kw in windows:
+        want = sw.window_forward_reference(*args, **kw)
+        err = float((sw.window_forward(*args, **kw) - want).abs().max())
+        B, R, P = args[1].shape
+        held.append(("window_synth", f"B={B} R={R} P={P} nxw*nzw={args[0].shape[0]}", err,
+                     float(want.abs().max())))
+    for (ref, syn), _kw in scans:
+        RC, B, W = syn.shape
+        for l2 in (False, True):
+            want = fs.scan_sums_reference(ref, syn, l2=l2)
+            err = float((fs.scan_sums(ref, syn, l2=l2) - want).abs().max())
+            held.append(("scan_sums", f"S={ref.shape[0] // RC} RC={RC} W={W} B={B}, l2={l2}",
+                         err, float(want.abs().max())))
+    return held
+
+
+def multidevice_rank(pb, pb_pad, rows):
+    """One rank of the multi-device phase (spawned, one gloo group): the
+    finite session on cuda:0 through each mesh, one warm call and MD_REPS
+    timed ones (host clock around work that ends in
+    torch.cuda.synchronize()), the kernel launches of each, and the
+    coverage errors of a far and a late batch on the distance shards.  The
+    warm call of each forward mesh captures the window and scan kernels'
+    operands, held against their plain versions after the launches are
+    read (held_on_rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from kiwi_tpu_torch import misfit as mf
+    from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.parallel import gfshard, make_mesh, sharded_forward
+
+    dev = torch.device("cuda", 0)
+    store, _s = get_store()
+    eng = make_engine(store, dev, filtered=False, base=FINITE_BASE)
+    lm = make_lm_engine(store, dev)
+    m41, m14, m22 = (make_mesh(a, b, device=dev) for a, b in ((4, 1), (1, 4), (2, 2)))
+    out = {"rank": dist.get_rank(), "device": str(m41.device)}
+
+    def run(label, fn, forward=True):
+        for counts in (fs.launches, sw.launches):
+            for k in counts:
+                counts[k] = 0
+        windows, scans = [], []
+        if forward:
+            windows = capture(sw, "window_forward", lambda: scans.extend(
+                capture(mf, "scan_sums", fn)))
+        else:
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MD_REPS):
+            res = fn()
+        torch.cuda.synchronize()
+        out[label] = {"result": [np.asarray(x.cpu() if torch.is_tensor(x) else x) for x in res],
+                      "seconds": time.perf_counter() - t0,
+                      "launches": {**fs.launches, **sw.launches}}
+        if forward:  # after the launches are read: these do not count
+            out[label]["held"] = held_on_rank(windows, scans)
+
+    run("4x1 sharded_forward", lambda: sharded_forward(eng, pb, m41))
+    full = eng._plan["cfg"]
+    out["full_window_bytes"] = full.nxw * full.nzw * full.ng * (full.nt_out + full.s_len) * 4
+    plan = gfshard.build_plan(eng, m14)
+    out["shard_window_bytes"] = plan.shard_window_bytes()
+    out["shard_receivers"] = [len(g) for g in plan.groups]
+    run("1x4 gfshard", lambda: plan.misfits(pb))
+    out["coverage"] = []
+    for col, hi in ((1, 1500.0), (0, 30.0)):  # north shift (m), time (s)
+        bad = np.tile(FINITE_BASE, (4, 1))
+        bad[:, col] = np.linspace(0.0, hi, 4).astype(np.float32)
+        try:
+            plan.misfits(bad)
+        except ValueError as e:
+            out["coverage"].append(str(e))
+    plan22 = gfshard.build_plan(eng, m22)
+    run("2x2 gfshard", lambda: plan22.misfits(pb_pad))
+    run("4x1 gradient", lambda: lm.global_misfits_and_grad(rows, mesh=m41), forward=False)
+    return out
+
+
+def run_multidevice(finite_eng, grad, out, results):
+    """The multi-device phase: MD_RANKS ranks (spawn_ranks) share the card;
+    each mesh's forwards must launch window_synth and scan_sums in every
+    rank (the gradient none), and each kernel must agree with its plain
+    version on every call a rank captured from its forwards (into results,
+    as record_err records), the 1 x 4 shards' windows must be narrower
+    than the whole plan's, every rank must hold the same rows, and rank 0's
+    must match this process's unsharded card engine (misfits, norms and
+    global misfits at TOL of the largest, shifts exactly; the gradient
+    phase's rows at its bars).  out["multidevice"]: the summed launches."""
+    import torch
+
+    from kiwi_tpu_torch import misfit as mf
+    from kiwi_tpu_torch.parallel import spawn_ranks
+
+    pb = finite_rows(np.linspace(0.0, 359.0, FINITE_B).astype(np.float32))
+    pb_pad = pb[:MD_PAD_B]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(multidevice_rank, MD_RANKS, (pb, pb_pad, grad["rows"]), timeout=600.0)
+    seconds = time.perf_counter() - t0
+    forwards = ("4x1 sharded_forward", "1x4 gfshard", "2x2 gfshard")
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            fail(f"multidevice: rank {r['rank']} on {r['device']}")
+        for label in forwards:
+            if min(r[label]["launches"][k] for k in ("window_synth", "scan_sums")) <= 0:
+                fail(f"multidevice: rank {r['rank']} {label} launched {r[label]['launches']}")
+            names = {h[0] for h in r[label]["held"]}
+            if names != {"window_synth", "scan_sums"}:
+                fail(f"multidevice: rank {r['rank']} {label} captured calls of {names} only")
+            for name, shapes, err, scale in r[label]["held"]:
+                record_numbers(results, name, err, scale,
+                               f"multidevice {label} rank {r['rank']} operands {shapes}")
+        if any(r["4x1 gradient"]["launches"].values()):
+            fail(f"multidevice: the gradient launched {r['4x1 gradient']['launches']}")
+        if not 0 < r["shard_window_bytes"] < r["full_window_bytes"]:
+            fail(f"multidevice: rank {r['rank']}'s shard window {r['shard_window_bytes']} B not "
+                 f"under the whole plan's {r['full_window_bytes']} B")
+        if len(r["coverage"]) != 2 or not all("coverage" in e for e in r["coverage"]):
+            fail(f"multidevice: rank {r['rank']}: out-of-coverage batches gave {r['coverage']}")
+        for label in (*forwards, "4x1 gradient"):
+            for a, b in zip(r[label]["result"], ranks[0][label]["result"]):
+                if not np.array_equal(a, b):
+                    fail(f"multidevice: rank {r['rank']} holds other {label} rows than rank 0")
+    rels = {}
+    for label, rows in zip(forwards, (pb, pb, pb_pad)):
+        m, n, fs = ranks[0][label]["result"]
+        want = [x.cpu().numpy() for x in finite_eng.misfits_for_source_batch(rows)]
+        g_got = mf.global_misfit(torch.as_tensor(m), torch.as_tensor(n)).numpy()
+        g_want = finite_eng.global_misfits_for_source_batch(rows).cpu().numpy()
+        rel = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+                  for a, b in ((m, want[0]), (n, want[1]), (g_got, g_want)))
+        rels[label] = rel
+        if not (rel <= TOL and np.array_equal(fs, want[2])):
+            apart = np.argwhere(fs != want[2])[:4].tolist()
+            fail(f"multidevice: {label} against the unsharded card engine: {rel:.3e} > {TOL} "
+                 f"or shifts differ at (model, receiver) {apart}: "
+                 f"{[(int(fs[i, r]), int(want[2][i, r])) for i, r in apart]}")
+    g, d = ranks[0]["4x1 gradient"]["result"]
+    rel_g = float(np.abs(g - grad["g"]).max()) / max(float(np.abs(grad["g"]).max()), 1e-30)
+    scale = param_scale(grad["rows"])
+    want = grad["grad"] * scale
+    worst = float((np.abs(d * scale - want) / np.maximum(
+        np.abs(want).max(axis=1, keepdims=True), 1e-30)).max())
+    if not (rel_g <= 2e-5 and worst <= GRAD_TOL):
+        fail(f"multidevice: sharded gradient against the unsharded one: g {rel_g:.3e}, "
+             f"components {worst:.3e}")
+    mps = {}
+    for label in (*forwards, "4x1 gradient"):
+        slowest = max(r[label]["seconds"] for r in ranks)
+        b = len(ranks[0][label]["result"][0])
+        mps[label] = MD_REPS * b / slowest
+    r0 = ranks[0]
+    log(f"phase multidevice: {MD_RANKS} processes sharing one card (gloo combine; not a "
+        f"scaling measurement) in {seconds:.2f} s with start-up; devices "
+        f"{sorted({r['device'] for r in ranks})}; launches per rank "
+        + "; ".join(f"{label} " + ", ".join(
+            f"{r[label]['launches']['window_synth']}/{r[label]['launches']['scan_sums']}"
+            for r in ranks) for label in forwards)
+        + f" (window_synth/scan_sums); 1x4 shard receivers {r0['shard_receivers']}, windows "
+        + ", ".join(str(r["shard_window_bytes"]) for r in ranks)
+        + f" B against {r0['full_window_bytes']} B; max rel diff to the unsharded engine "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+        + f", gradient g {rel_g:.3e}, components {worst:.3e}; shifts equal; coverage errors "
+        f"raised in every rank")
+    out["multidevice"] = {
+        "mps": mps,
+        "launches": {k: sum(r[label]["launches"][k] for r in ranks
+                            for label in (*forwards, "4x1 gradient"))
+                     for k in ranks[0][forwards[0]]["launches"]},
+    }
+    return mps
 
 
 def get_long_store():
@@ -2401,6 +2614,10 @@ def main():
     )
     for label, names, run in paths:
         mps[label], counts[label] = run_main_path(label, names, run)
+    # the ranks count their own launches (other processes): their sums
+    log("phase multidevice (kernel-vs-plain on each rank's captured operands):")
+    mps["multidevice"] = run_multidevice(finite["finite"], inv["gradient"], inv, results)
+    counts["multidevice"] = {name: 0 for name in REPLACES} | inv["multidevice"]["launches"]
     launches = {name: sum(c[name] for c in counts.values()) for name in REPLACES}
     # the gradient differentiates the plain formulation: no kernel; the long
     # window's plan has no window kernel
@@ -2493,10 +2710,14 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("models/s (lm: rows evaluated per second) "
         + ", ".join(f"{k} {v:.0f}" for k, v in mps.items()
-                    if k not in ("protocol", "gradient", "pipeline", "autokiwi", "gfdb",
-                                 "acquisition", "web", "tools", "eikonal_benchmark"))
+                    if k not in ("protocol", "gradient", "pipeline", "autokiwi", "multidevice",
+                                 "gfdb", "acquisition", "web", "tools", "eikonal_benchmark"))
         + f"; gradient {mps['gradient']:.2f} steps/s ({GRAD_STARTS} rows a step) ({smi})")
     log(f"mini_inp_seconds {mps['protocol']:.6f} ({smi})")
+    log(f"multidevice ({MD_RANKS} processes sharing one card, not scaling): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in mps["multidevice"].items())
+        + f" models/s (rows/s for the gradient; {MD_REPS} calls, the slowest rank's host "
+        f"clock) ({smi})")
     log(f"pipeline: SDR grid {mps['pipeline']:.0f} models/s, window_synth launches "
         f"{counts['pipeline']['window_synth']}; autokiwi cycle {mps['autokiwi']:.2f} s ({smi})")
     web = inv["web"]["seconds"]

@@ -328,18 +328,28 @@ class Engine:
     def _make_plan(self, extent, depth_range, time_range, risetime_max, nshape,
                    gsize=1):
         self._require_ready()
-        store = self.store
-        dev = self.device
-        geom = self._geometry()
-        cfg = synth.plan_config(
-            store, geom, extent, depth_range, time_range,
-            interpolate=self.interpolate, xunder=self.xunder, zunder=self.zunder,
-        )
-        gfd, gfi, gfn = synth.window_arrays(store, cfg, dev)
-        ncent = int(np.prod(nshape))
-        group_size = synth.choose_group_size(cfg, ncent, gsize)
+        cfg = self._plan_config(extent, depth_range, time_range)
+        gfd, gfi, gfn = synth.window_arrays(self.store, cfg, self.device)
         ext = synth.materialize_window(gfd, gfi, cfg)
+        return self._plan_forwards(cfg, self._plan_statics(cfg, risetime_max), (ext, gfi, gfn),
+                                   np.arange(len(self.receivers)), nshape, gsize)
 
+    def _plan_config(self, extent, depth_range, time_range, geom=None):
+        """The synthesis config of a plan for these centroid bounds and the
+        receivers of `geom` (all of them by default)."""
+        return synth.plan_config(
+            self.store, self._geometry() if geom is None else geom, extent, depth_range,
+            time_range, interpolate=self.interpolate, xunder=self.xunder, zunder=self.zunder,
+        )
+
+    def _plan_statics(self, cfg, risetime_max):
+        """What every receiver of a plan shares, from its config: the STF
+        fold length, the floating shift range in samples, the probe span,
+        the static union window of the misfit sums and the references'
+        amplitude scale.  A plan of a subset of the receivers takes
+        them from the whole plan's config, so that its probe, window and
+        normalization are the whole plan's."""
+        store = self.store
         fold_max = int(np.ceil(0.5 * risetime_max / store.dt)) + 1 if risetime_max > 0 else 0
 
         # probe span: union of the synthesis window and every reference trace
@@ -356,8 +366,45 @@ class Engine:
         ps0, ps1 = mf.allowed_span((lo, hi), minlength)
         st = mf.ProbeStatic(ps0=ps0, pl=ps1 - ps0 + 1, dt=store.dt)
 
-        layout = self._rc_layout()
-        rc_rec = np.array([r for r, _ in layout], dtype=np.int64)
+        # static union window for the misfit sums: every possible norm span
+        # (ref spans under all floating shifts, the synthesis window +- fold,
+        # GF-data-derived synthetic spans, taper spans clipped to the probe)
+        # lies inside it
+        sl = np.s_[cfg.ix0 : cfg.ix0 + cfg.nxw, cfg.iz0 : cfg.iz0 + cfg.nzw]
+        gfi_np = np.asarray(store.itmin[sl])
+        gfn_np = np.asarray(store.nsamples[sl])
+        w0 = min(lo, int(gfi_np.min()) + cfg.s_base - 1 - fold_max)
+        w1 = max(hi, int((gfi_np + gfn_np).max()) + cfg.s_base + cfg.s_len
+                 + 1 + fold_max)
+        for plf in self._tapers.values():
+            dlo, dhi = plf.discrete_span(store.dt)
+            w0 = min(w0, max(dlo, st.ps0))
+            w1 = max(w1, min(dhi, st.ps0 + st.pl - 1))
+        eval_win = (max(w0, st.ps0), min(w1, st.ps0 + st.pl - 1))
+        refs = [np.asarray(v, np.float32) for v, _ in self._refs.values()]
+        amp_scale = float(np.abs(np.concatenate(refs)).max()) if refs else 0.0
+        return fold_max, (s1, s2), st, eval_win, amp_scale
+
+    def _plan_forwards(self, cfg, statics, window, rec_idx, nshape, gsize):
+        """The plan of the receivers rec_idx (their rc rows in the engine's
+        order) on the GF window (ext, gfi, gfn) that cfg selects: misfit
+        context, reference context and forwards.  The engine's plans take
+        every receiver."""
+        store = self.store
+        dev = self.device
+        ext, gfi, gfn = window
+        fold_max, (s1, s2), st, eval_win, amp_scale = statics
+        ncent = int(np.prod(nshape))
+        form = synth.choose_formulation(cfg, ncent, gsize)
+        group_size = synth.choose_group_size(cfg, ncent, gsize)
+
+        rec_idx = np.asarray(rec_idx, dtype=np.int64)
+        local = {int(r): i for i, r in enumerate(rec_idx)}
+        geom = self._geometry().subset(rec_idx)
+        full_layout = self._rc_layout()
+        rc_rows = [irc for irc, (r, _c) in enumerate(full_layout) if r in local]
+        layout = [full_layout[irc] for irc in rc_rows]
+        rc_rec = np.array([local[r] for r, _ in layout], dtype=np.int64)
         rc_chan = np.array(
             [abs(synth.COMPONENT_IDS[c]) - 1 for _, c in layout], dtype=np.int64
         )
@@ -367,39 +414,28 @@ class Engine:
         span_of_chan = np.array([0, 1, 2, 0, 0], dtype=np.int64)
 
         setup = mf.MisfitSetup(st, rc_rec)
-        for irc, (values, itmin) in self._refs.items():
-            setup.set_ref(irc, values, itmin)
-        for irc, plf in self._tapers.items():
-            setup.set_taper(irc, plf)
-        for irc, plf in self._filters.items():
-            setup.set_filter(irc, plf)
+        for j, irc in enumerate(rc_rows):
+            if irc in self._refs:
+                setup.set_ref(j, *self._refs[irc])
+            if irc in self._tapers:
+                setup.set_taper(j, self._tapers[irc])
+            if irc in self._filters:
+                setup.set_filter(j, self._filters[irc])
         setup.syn_factor[:] = self.synthetics_factor
-        for irc, (r, _c) in enumerate(layout):
-            setup.enabled[irc] = self.receivers[r].enabled
+        for j, (r, _c) in enumerate(layout):
+            setup.enabled[j] = self.receivers[r].enabled
             tmin, tmax = self._per_rec_shiftrange.get(r, self.floating_shiftrange_s)
-            setup.shift_lo[irc] = int(fnint(np.float32(tmin) / np.float32(store.dt)))
-            setup.shift_hi[irc] = int(fnint(np.float32(tmax) / np.float32(store.dt)))
-        ctx = setup.to(dev, self.misfit_method)
-
-        # static union window for the misfit sums: every possible norm span
-        # (ref spans under all floating shifts, the synthesis window +- fold,
-        # GF-data-derived synthetic spans, taper spans) lies inside it
-        sl = np.s_[cfg.ix0 : cfg.ix0 + cfg.nxw, cfg.iz0 : cfg.iz0 + cfg.nzw]
-        gfi_np = np.asarray(store.itmin[sl])
-        gfn_np = np.asarray(store.nsamples[sl])
-        w0 = min(lo, int(gfi_np.min()) + cfg.s_base - 1 - fold_max)
-        w1 = max(hi, int((gfi_np + gfn_np).max()) + cfg.s_base + cfg.s_len
-                 + 1 + fold_max)
-        if setup.has_taper.any():
-            w0 = min(w0, int(setup.taper_lo[setup.has_taper].min()))
-            w1 = max(w1, int(setup.taper_hi[setup.has_taper].max()))
-        eval_win = (max(w0, st.ps0), min(w1, st.ps0 + st.pl - 1))
+            setup.shift_lo[j] = int(fnint(np.float32(tmin) / np.float32(store.dt)))
+            setup.shift_hi[j] = int(fnint(np.float32(tmax) / np.float32(store.dt)))
+        ctx = setup.to(dev, self.misfit_method, amp_scale=amp_scale)
 
         recs = geom.to(dev)
-        nrec = len(self.receivers)
+        nrec = len(rec_idx)
         method = self.misfit_method
-        any_taper = bool(setup.has_taper.any())
-        any_filter = bool(setup.has_filter.any())
+        # the whole session's, so that every shard of a distance-sharded
+        # plan evaluates as the unsharded plan does
+        any_taper = bool(self._tapers)
+        any_filter = bool(self._filters)
         rctx = mf.precompute_ref_context(ctx, method, st, (s1, s2), any_taper, any_filter)
 
         rc_rec_t = torch.as_tensor(rc_rec, device=dev)
@@ -539,15 +575,14 @@ class Engine:
 
         # the window kernel where it applies, else the plain synthesis: a
         # static choice from the plan's config
-        formulation = "window" if synth_window.usable(cfg) else "plain"
-        if formulation == "window":
+        formulation = "window" if form.use_window else "plain"
+        if form.use_window:
             ext_flat = synth_window.pack_ext(ext, cfg)
-            gw = gsize if ncent % gsize == 0 else 1  # centroids sharing one GF node
 
             def forward_batch(cbatch, moments, risetimes):
                 """Per-source kinematics -> window kernel -> spans -> eval."""
                 kin = synth._centroid_kinematics(cfg, recs, cbatch)  # [B, R, C]
-                ard = synth_window.synthesize_ard_batch(ext_flat, cfg, kin, gw)
+                ard = synth_window.synthesize_ard_batch(ext_flat, cfg, kin, form.group_size)
                 lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
                 return eval_batch(rc_rows(ard), lo[:, rc_rec_t, span_idx_t],
                                   hi[:, rc_rec_t, span_idx_t], moments, risetimes)
@@ -790,7 +825,10 @@ class Engine:
         ])
         return bool(np.all(np.abs(s_dev - s_host) <= rtol * scale))
 
-    def _ensure_plan(self, risetime_max, shape, stats, gsize=1):
+    def _plan_bounds(self, risetime_max, stats):
+        """(extent, depth range, time range, rise time) of a plan covering
+        these centroid statistics, bucketed so that nearby batches share
+        one plan."""
         extent, depth_range, time_range = stats
         st = self.store
         xstep = 4.0 * st.dx
@@ -806,9 +844,13 @@ class Engine:
             self._bucket(time_range[1] + st.dt, tstep),
         )
         rt = self._bucket(risetime_max, 4.0 * st.dt) if risetime_max > 0 else 0.0
-        key = (extent_b, dr, tr, rt, np.prod(shape), gsize)
+        return extent_b, dr, tr, rt
+
+    def _ensure_plan(self, risetime_max, shape, stats, gsize=1):
+        bounds = self._plan_bounds(risetime_max, stats)
+        key = (*bounds, np.prod(shape), gsize)
         if self._plan is None or self._plan_key != key:
-            self._plan = self._make_plan(extent_b, dr, tr, rt, shape, gsize=gsize)
+            self._plan = self._make_plan(*bounds, shape, gsize=gsize)
             self._plan_key = key
             self.plan_builds += 1
         return self._plan
@@ -837,38 +879,59 @@ class Engine:
         way).  Host-discretized (eikonal) batches are discretized whole
         first, planned from the host param_stats, and the chunks take row
         slices of their centroid tables."""
+        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
+        plan, rows, moments, risetimes, fwd = self._batch_plan(pb)
+        return self._run_rows(plan, fwd, rows, moments, risetimes, 0, pb.shape[0])
+
+    def _batch_plan(self, pb, shared=True):
+        """(plan, rows, moments, risetimes, forward) of the batch pb,
+        planned as a whole (rows as _batch_rows gives them).  shared=False
+        takes the plan's batch forward (window kernel or plain synthesis)
+        for shared-kinematics batches too."""
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
         model = get_source_model(self.source_type)
-        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
-        edt = self.effective_dt
+        rows, moments, risetimes, shape, gsize, stats = self._batch_rows(model, pb)
+        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats, gsize=gsize)
+        if shared and not model.host_discretize:
+            fwd = self._batch_forward(model, pb, plan, risetimes)
+        else:
+            fwd = plan["forward_batch"]
+        return plan, rows, moments, risetimes, fwd
+
+    def _batch_rows(self, model, pb):
+        """(rows(i, j): the centroid tables of rows i..j-1 on the device,
+        moments, risetimes, grid shape, group size, param_stats) of the
+        batch pb.  Host-discretized (eikonal) batches are discretized whole
+        and rows slices their tables; device-discretized rows are
+        discretized when asked for."""
         if model.host_discretize:
             stats = self._param_stats(model, pb)
             tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
-            plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats,
-                                     gsize=gsize)
-            fwd = plan["forward_batch"]
 
             def rows(i, j):
                 return {k: v[i:j] for k, v in tables.items()}
-        else:
-            shape = self._batch_shape(model, pb)
-            moments, risetimes = self._post_factors(model, pb)
-            plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape,
-                                     self._param_stats(model, pb), gsize=int(shape[-1]))
-            fwd = self._batch_forward(model, pb, plan, risetimes)
-            pbt = torch.as_tensor(pb, device=self.device)
+            return rows, moments, risetimes, shape, gsize, stats
+        shape = self._batch_shape(model, pb)
+        moments, risetimes = self._post_factors(model, pb)
+        stats = self._param_stats(model, pb)
+        edt = self.effective_dt
+        pbt = torch.as_tensor(pb, device=self.device)
 
-            def rows(i, j):
-                return model.discretize(pbt[i:j], edt, shape)
+        def rows(i, j):
+            return model.discretize(pbt[i:j], edt, shape)
+        return rows, moments, risetimes, shape, int(shape[-1]), stats
 
+    def _run_rows(self, plan, fwd, rows, moments, risetimes, i0, i1):
+        """fwd over the batch rows i0..i1-1, in balanced chunks of at most
+        memory_budget bytes of per-source transients."""
         dev = self.device
-        mts = torch.as_tensor(moments, device=dev)
-        rts = torch.as_tensor(risetimes, device=dev)
-        b = pb.shape[0]
+        mts = torch.as_tensor(moments[i0:i1], device=dev)
+        rts = torch.as_tensor(risetimes[i0:i1], device=dev)
+        b = i1 - i0
         chunk = max(1, min(b, self.memory_budget // max(plan["per_source_bytes"], 1)))
         chunk = -(-b // -(-b // chunk))  # balanced chunks
-        outs = [fwd(rows(i, i + chunk), mts[i:i + chunk], rts[i:i + chunk])
+        outs = [fwd(rows(i0 + i, i0 + i + chunk), mts[i:i + chunk], rts[i:i + chunk])
                 for i in range(0, b, chunk)]
         if len(outs) == 1:
             return outs[0]
@@ -1127,7 +1190,7 @@ class Engine:
         compiles per chunk, so the last one is not padded."""
         return int(max(8, min(b, self.memory_budget // max(3 * plan["xla_source_bytes"], 1))))
 
-    def global_misfits_and_grad(self, params_batch):
+    def global_misfits_and_grad(self, params_batch, mesh=None):
         """Global misfits g f32[B] and dg/dparams f32[B, nparams] (host
         arrays) for parameter rows [B, nparams], by reverse-mode autodiff
         through the plain formulation: the global misfit of each row is
@@ -1136,10 +1199,22 @@ class Engine:
         parameter.  Exact almost everywhere: the fractional 2-tap shifts
         and the bilinear GF blend are piecewise linear in the parameters
         (the integer grid snaps are the kinks).  Device-discretized models
-        only, as in the JAX package."""
+        only, as in the JAX package.
+
+        mesh: a parallel.make_mesh mesh: the rows are split over its "s"
+        axis and gathered, so that every rank returns all of them
+        (parallel.sharding.sharded_grad)."""
+        if mesh is not None:
+            from .parallel.sharding import sharded_grad
+            return sharded_grad(self, params_batch, mesh)
+        return self._values_and_grads(params_batch)
+
+    def _values_and_grads(self, rows, plan_rows=None):
+        """global_misfits_and_grad of the rows on this engine's device, in
+        the plan of plan_rows (the rows themselves by default)."""
         model = get_source_model(self.source_type)
-        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
-        plan, shape = self._grad_plan(model, pb)
+        pb = np.atleast_2d(np.asarray(rows, dtype=np.float32))
+        plan, shape = self._grad_plan(model, pb if plan_rows is None else plan_rows)
         b = pb.shape[0]
         chunk = self._grad_chunk(plan, b)
         gs, grads = [], []

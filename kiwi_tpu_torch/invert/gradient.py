@@ -52,7 +52,7 @@ class CosineAdam:
 
 
 def minimize_multistart(engine, p0_batch, mask=None, mins=None, maxs=None,
-                        steps=150, lr=0.03, tol=0.0):
+                        steps=150, lr=0.03, tol=0.0, mesh=None):
     """Descend B starting parameter vectors in parallel.
 
     p0_batch: f32[B, nparams] starting points.
@@ -67,6 +67,10 @@ def minimize_multistart(engine, p0_batch, mask=None, mins=None, maxs=None,
         parameter, not its norm column).
     tol: stop when the best global misfit improves by less than tol over
         10 steps (0 = run all steps).
+    mesh: a parallel.make_mesh mesh: each step's starts are split over its
+        "s" axis (Engine.global_misfits_and_grad(mesh=)); every rank then
+        holds every start's (g, grad) and runs the same host Adam, so all
+        ranks return the same result.  Call it on every rank.
 
     Returns (best_params f32[B, nparams], best_g f64[B], nsteps): the best
     iterate of each start, so that every basin keeps its solution.
@@ -100,7 +104,7 @@ def minimize_multistart(engine, p0_batch, mask=None, mins=None, maxs=None,
         g = np.zeros(b)
         grad = np.zeros((b, model.nparams))
         for sel, rb in shape_buckets(model, engine.effective_dt, full_rows):
-            g[sel], grad[sel] = engine.global_misfits_and_grad(rb)
+            g[sel], grad[sel] = engine.global_misfits_and_grad(rb, mesh=mesh)
         return g, grad
 
     x = project(rows[:, idx].astype(np.float64) / sub_norm)

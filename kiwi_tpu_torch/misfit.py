@@ -162,14 +162,17 @@ class MisfitSetup:
         self.has_filter[irc] = True
         self.filter_plfs[irc] = filt
 
-    def to(self, device, method=None):
+    def to(self, device, method=None, amp_scale=None):
         """The misfit context as tensors on `device`.
 
         Amplitude normalization: every norm runs on ref/s0 and
         syn_factor/s0, and the eval multiplies the 1-homogeneous outputs
         back by s0.  Without it a moment-1.0 source (samples ~1e-19) has
         squares ~1e-38, which flush to zero in float32.  `amp_scale` stays a
-        Python float (it multiplies host-side into the outputs).
+        Python float (it multiplies host-side into the outputs).  s0 is the
+        largest |ref| of these rows, or amp_scale where given: a shard of a
+        session's rows takes the whole session's, so that its rows are
+        normalized, and their floating shifts chosen, as unsharded.
 
         The amplitude-spectrum norms (`method` in AMPSPEC) run on
         amp_grid's extended grid (every pair's centred pow2 window lies
@@ -177,7 +180,7 @@ class MisfitSetup:
         filters are evaluated there too: amp_taper_w f32[RC, 4P] and
         amp_filter_w f32[RC, 2P + 1], P = next_pow2(pl).  Other methods'
         contexts leave them out."""
-        s0 = float(np.abs(self.ref).max())
+        s0 = float(np.abs(self.ref).max()) if amp_scale is None else float(amp_scale)
         if not np.isfinite(s0) or s0 == 0.0:
             s0 = 1.0
         t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731

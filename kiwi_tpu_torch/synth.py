@@ -29,6 +29,7 @@ import torch
 from . import geo
 from .gf.store import GFStore
 from .gf.trace import jnint, sample_ext
+from .ops import synth_window
 
 F32 = torch.float32
 F64 = torch.float64
@@ -52,6 +53,12 @@ class ReceiverGeometry:
     sin_b: np.ndarray  # sin/cos of dist/earthradius
     cos_b: np.ndarray
     depth: np.ndarray  # [R] receiver depth (m), float32
+
+    def subset(self, idx):
+        """The geometry of the receivers idx (kiwi_tpu.parallel.gfshard's
+        _SubGeom)."""
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)})
 
     def to(self, device):
         out = {k: torch.as_tensor(getattr(self, k), dtype=F64, device=device)
@@ -632,11 +639,11 @@ def window_arrays(store: GFStore, cfg: SynthConfig, device):
 
 
 def choose_group_size(cfg: SynthConfig, ncent: int, gsize: int):
-    """The centroid group size of kiwi_tpu.synth.choose_formulation's
-    synthesis path: grouped-direct (gsize) when its per-source transient
+    """The centroid group size of the values rows (values_matrix) in the
+    plain synthesis and the shared-kinematics forwards: kiwi_tpu.synth.
+    choose_formulation's grouped-direct gsize when its per-source transient
     bytes do not exceed the scatter+conv formulation's, else 1 (conv).
-    Only the values rows' grouping depends on it here; the window kernel
-    and its chunk cap are not part of this slice."""
+    Grouping does not change the values, only how often a node is blended."""
     def _pad(n, m):
         return -(-int(n) // m) * m
 
@@ -651,3 +658,28 @@ def choose_group_size(cfg: SynthConfig, ncent: int, gsize: int):
         + ncent * ng_p * _pad(cfg.nt_out + 1, 128)
     ) * 4
     return gsize if grouped_bytes <= conv_bytes else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Formulation:
+    """The synthesis formulation of a plan (kiwi_tpu.synth.Formulation
+    without its TPU fields): the window kernel (ops/synth_window) or the
+    plain torch synthesis, and the centroid group size it runs with."""
+
+    use_window: bool
+    group_size: int  # the window kernel's G, else the values rows' grouping
+
+
+def choose_formulation(cfg: SynthConfig, ncent: int, gsize: int):
+    """The formulation of a plan with this config for sources of ncent
+    centroids in runs of gsize at one position; the engine and the
+    distance-sharded forward (parallel/gfshard) both choose through it.
+
+    The window kernel takes every config it can (synth_window.usable: the
+    extended time axis and the GF component count), with the groups the
+    discretizer gives when they tile the centroids.  Unlike the TPU kernel
+    it has no batch cap (no scalar-prefetch memory to fit), so the
+    Formulation carries none; callers chunk by their memory budget."""
+    if synth_window.usable(cfg):
+        return Formulation(True, gsize if ncent % gsize == 0 else 1)
+    return Formulation(False, choose_group_size(cfg, ncent, gsize))

@@ -682,3 +682,27 @@ def test_web_calculate_on_the_card(cuda_dev, tmp_path):
         g, w = np.asarray(cents["cuda"][k]), np.asarray(cents["cpu"][k])
         assert g.shape == w.shape and np.abs(g - w).max() <= 1e-5 * max(np.abs(w).max(), 1e-30)
     json.dumps(cents["cuda"])
+
+
+def test_gfshard_ranks_on_the_card(cuda_dev):
+    """Two ranks of a gloo group share cuda:0, each holding the GF window of
+    its receiver group: both launch window_synth and scan_sums, every rank
+    returns the same misfits, and they match the CPU port's unsharded
+    engine at 1e-5 of the largest value, shifts exactly."""
+    import torch_parallel_ranks as R
+    from kiwi_tpu_torch.gf import elseis
+    from kiwi_tpu_torch.parallel import spawn_ranks
+
+    store = elseis.build_ahfull_store(**R.STORE, stf=R.STF)
+    args = (store.dt, store.dx, store.dz, store.firstx, store.firstz, store.data, store.itmin,
+            store.nsamples)
+    pb = R.sweep(16, 5, 0.0, 350.0)
+    ranks = spawn_ranks(R.card_gfshard_rank, 2, (args, pb), timeout=600.0)
+    cpu = R.make_engine(args)
+    R.floating(cpu, True)
+    want = [x.numpy() for x in cpu.misfits_for_source_batch(pb)]
+    for m, n, fs, (windows, scans), nbytes in ranks:
+        assert windows > 0 and scans > 0 and nbytes > 0
+        for got, ref in ((m, want[0]), (n, want[1])):
+            assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+        np.testing.assert_array_equal(fs, want[2])

@@ -313,7 +313,8 @@ def test_port_imports_neither_jax_nor_reference():
         "       'native', 'dataset', 'gf.interpolation', 'invert.gradient', 'geo', 'phases',\n"
         "       'pipeline', 'plotting', 'prepare', 'config', 'cli.kiwi_main', 'cli.autokiwi',\n"
         "       'gf.builder', 'gf.qseis', 'gf.poel', 'cli.gfdb_tools', 'acquisition',\n"
-        "       'cli.tools', 'profiling', 'web', 'web.server')\n"
+        "       'cli.tools', 'profiling', 'web', 'web.server', 'parallel',\n"
+        "       'parallel.sharding', 'parallel.gfshard')\n"
         "missing = [m for m in new if 'kiwi_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('kiwi_tpu_torch')]))\n"
@@ -321,4 +322,4 @@ def test_port_imports_neither_jax_nor_reference():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout) >= 59
+    assert int(r.stdout) >= 63
