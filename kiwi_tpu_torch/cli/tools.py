@@ -175,6 +175,7 @@ def eikonal_benchmark(argv=None):
     if opts.device == "cuda" and not torch.cuda.is_available():
         sys.exit("eikonal_benchmark: no CUDA device (--device cpu runs the sweep on the CPU)")
     from .. import eikonal as eik
+    from ..profiling import to_device
 
     rng = np.random.default_rng(0)
     speed = (2500.0 + 500.0 * rng.random((n, n))).astype(np.float32)
@@ -186,7 +187,7 @@ def eikonal_benchmark(argv=None):
     print(f"host FMM      {n}x{n}: {t_fmm:.3f} s")
 
     dev = torch.device(opts.device)
-    s = torch.as_tensor(speed, device=dev)
+    s = to_device(speed, dev)
 
     def solve():
         eik.sweep_solve(s, (100.0, 100.0), (0.0, 0.0), p0, n_rounds=8)

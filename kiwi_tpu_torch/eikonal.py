@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .ops.eik_sweep import sweep_solve_batch
+from .profiling import to_device
 
 BIG = np.float32(1e30)  # an unreached cell of the fast-sweeping solve
 F32 = torch.float32
@@ -131,7 +132,8 @@ def sweep_solve(speed, delta, first, initial_point, n_rounds=3):
     speed = torch.as_tensor(speed, dtype=F32)
 
     def row(x):
-        return torch.stack([torch.as_tensor(v, dtype=F32) for v in x]).to(speed.device)[None]
+        host = torch.stack([torch.as_tensor(v, dtype=F32) for v in x])
+        return to_device(host, speed.device)[None]
 
     return sweep_solve_batch(speed[None], row(delta), row(first), row(initial_point),
                              n_rounds=n_rounds)[0]

@@ -64,6 +64,7 @@ from .gf.trace import dataspan, fnint
 from .ops import synth_window
 from .ops.float_scan import MAX_T
 from .plf import PLF
+from .profiling import count, span, to_device, to_host
 from .sources import eikonal as eiksrc
 from .sources import get_source_model
 
@@ -438,10 +439,10 @@ class Engine:
         any_filter = bool(self._filters)
         rctx = mf.precompute_ref_context(ctx, method, st, (s1, s2), any_taper, any_filter)
 
-        rc_rec_t = torch.as_tensor(rc_rec, device=dev)
-        rc_chan_t = torch.as_tensor(rc_chan, device=dev)
-        rc_sign_t = torch.as_tensor(rc_sign, device=dev)
-        span_idx_t = torch.as_tensor(span_of_chan[rc_chan], device=dev)
+        rc_rec_t = to_device(rc_rec, dev)
+        rc_chan_t = to_device(rc_chan, dev)
+        rc_sign_t = to_device(rc_sign, dev)
+        span_idx_t = to_device(span_of_chan[rc_chan], dev)
 
         span_tab = synth.span_tables(gfi, gfn, cfg)
 
@@ -512,26 +513,28 @@ class Engine:
             """Shared-kinematics forward with the synthesis contraction fused
             into the scan kernel.  Callers guarantee batch-uniform
             risetimes and kinematics."""
-            v, wv, lo_rc, hi_rc = shared_parts(cbatch)
-            wv = wv.permute(0, 1, 3, 4, 2)  # [R, C, 3, ng, B] (view)
-            # rotation + component signs folded into the weights: the
-            # synthesis is linear in the (a, r, d) channel axis; exact f32
-            # products summed in channel order
-            wk = sum(rot[:, :, None, None, o, None] * wv[:, None, :, o] for o in range(3))
-            bsz = wk.shape[-1]
-            wgt_rtb = wk.reshape(nrec * rc_k, tprime, bsz)  # [RC, T, B]
-            v_all = v.reshape(nrec, tprime, cfg.nt_out)  # [R, T, nt]
-            if any_taper or any_filter:
-                v_rows = v_all.repeat_interleave(rc_k, dim=0)
-                kshare = 1
-            else:
-                v_rows = v_all
-                kshare = rc_k
-            return mf.evaluate_misfits_floating_fused(
-                ctx, v_rows, wgt_rtb, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
-                risetime0, rctx, fold_nshift_max=fold_max, any_taper=any_taper,
-                any_filter=any_filter, eval_win=eval_win, k_share=kshare, rids=rc_rec,
-            )
+            with span("kiwi.synth.forward"):
+                v, wv, lo_rc, hi_rc = shared_parts(cbatch)
+                wv = wv.permute(0, 1, 3, 4, 2)  # [R, C, 3, ng, B] (view)
+                # rotation + component signs folded into the weights: the
+                # synthesis is linear in the (a, r, d) channel axis; exact f32
+                # products summed in channel order
+                wk = sum(rot[:, :, None, None, o, None] * wv[:, None, :, o] for o in range(3))
+                bsz = wk.shape[-1]
+                wgt_rtb = wk.reshape(nrec * rc_k, tprime, bsz)  # [RC, T, B]
+                v_all = v.reshape(nrec, tprime, cfg.nt_out)  # [R, T, nt]
+                if any_taper or any_filter:
+                    v_rows = v_all.repeat_interleave(rc_k, dim=0)
+                    kshare = 1
+                else:
+                    v_rows = v_all
+                    kshare = rc_k
+            with span("kiwi.misfit.eval"):
+                return mf.evaluate_misfits_floating_fused(
+                    ctx, v_rows, wgt_rtb, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
+                    risetime0, rctx, fold_nshift_max=fold_max, any_taper=any_taper,
+                    any_filter=any_filter, eval_win=eval_win, k_share=kshare, rids=rc_rec,
+                )
 
         def rc_rows(ard):
             """ard f32[B, R, 3, nt_out] -> the signed rc component rows [B, RC, nt_out]."""
@@ -547,21 +550,23 @@ class Engine:
                 evaluate = mf.evaluate_misfits_floating_batch
             else:
                 evaluate = functools.partial(mf.evaluate_misfits, any_filter=any_filter)
-            return evaluate(ctx, syn_rc, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
-                            risetimes, rctx, fold_nshift_max=fold_max, eval_win=eval_win,
-                            rids=rc_rec)
+            with span("kiwi.misfit.eval"):
+                return evaluate(ctx, syn_rc, cfg.out_it0, lo_rc, hi_rc, st, nrec, moments,
+                                risetimes, rctx, fold_nshift_max=fold_max, eval_win=eval_win,
+                                rids=rc_rec)
 
         def forward_shared_raw(cbatch, moments, risetimes):
             """Shared-kinematics forward for batches the fused kernel cannot
             take: the moment contraction as one float32 batched matmul per
             receiver (TF32 off; an XLA contraction at HIGHEST precision in
             the JAX package, outside any Pallas kernel), then the scan."""
-            v, wv, lo_rc, hi_rc = shared_parts(cbatch)
-            bsz = wv.shape[2]
-            w2 = wv.permute(0, 2, 3, 1, 4).reshape(nrec, bsz * 3, tprime)
-            ard = torch.bmm(w2, v.reshape(nrec, tprime, cfg.nt_out))  # [R, B*3, nt]
-            ard = ard.reshape(nrec, bsz, 3, cfg.nt_out).transpose(0, 1)
-            return eval_batch(rc_rows(ard), lo_rc, hi_rc, moments, risetimes)
+            with span("kiwi.synth.forward"):
+                v, wv, lo_rc, hi_rc = shared_parts(cbatch)
+                bsz = wv.shape[2]
+                w2 = wv.permute(0, 2, 3, 1, 4).reshape(nrec, bsz * 3, tprime)
+                ard = torch.bmm(w2, v.reshape(nrec, tprime, cfg.nt_out))  # [R, B*3, nt]
+                syn_rc = rc_rows(ard.reshape(nrec, bsz, 3, cfg.nt_out).transpose(0, 1))
+            return eval_batch(syn_rc, lo_rc, hi_rc, moments, risetimes)
 
         def forward_batch_xla(cbatch, moments, risetimes):
             """The differentiable batch forward (kiwi_tpu's
@@ -581,15 +586,19 @@ class Engine:
 
             def forward_batch(cbatch, moments, risetimes):
                 """Per-source kinematics -> window kernel -> spans -> eval."""
-                kin = synth._centroid_kinematics(cfg, recs, cbatch)  # [B, R, C]
-                ard = synth_window.synthesize_ard_batch(ext_flat, cfg, kin, form.group_size)
-                lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
-                return eval_batch(rc_rows(ard), lo[:, rc_rec_t, span_idx_t],
+                with span("kiwi.synth.forward"):
+                    kin = synth._centroid_kinematics(cfg, recs, cbatch)  # [B, R, C]
+                    ard = synth_window.synthesize_ard_batch(ext_flat, cfg, kin, form.group_size)
+                    lo, hi = synth.physical_spans_from_tables(span_tab, cfg, kin)  # [B, R, 3]
+                    syn_rc = rc_rows(ard)
+                return eval_batch(syn_rc, lo[:, rc_rec_t, span_idx_t],
                                   hi[:, rc_rec_t, span_idx_t], moments, risetimes)
         else:
             def forward_batch(cbatch, moments, risetimes):
                 """Per-source kinematics -> plain synthesis -> spans -> eval."""
-                return eval_batch(*plain_synth(cbatch), moments, risetimes)
+                with span("kiwi.synth.forward"):
+                    parts = plain_synth(cbatch)
+                return eval_batch(*parts, moments, risetimes)
 
         # per-source transient bytes of the batch forwards (kinematics and
         # packed weights, traces, probes, scan or masked-eval blocks; under
@@ -658,8 +667,7 @@ class Engine:
         if model.host_discretize:
             return self._discretize_batch_host(model, pb)
         shape = self._batch_shape(model, pb)
-        cbatch = model.discretize(torch.as_tensor(pb, device=self.device),
-                                  self.effective_dt, shape)
+        cbatch = model.discretize(to_device(pb, self.device), self.effective_dt, shape)
         moments, risetimes = self._post_factors(model, pb)
         return cbatch, moments, risetimes, shape, int(shape[-1])
 
@@ -723,7 +731,7 @@ class Engine:
                 rng = np.random.default_rng(len(self._eikonal_checked_keys))
                 idxs = set(hosts) | {0} | {
                     int(i) for i in rng.choice(len(pb), size=min(3, len(pb)), replace=False)}
-                tables = {k: v.cpu().numpy() for k, v in cbatch.items()}
+                tables = {k: to_host(v)[0] for k, v in cbatch.items()}
                 for i in sorted(idxs - set(hosts)):
                     hosts[i] = model.discretize(pb[i], edt, ctx)
                 bad = [i for i in sorted(idxs)
@@ -757,7 +765,7 @@ class Engine:
             arr = np.zeros((len(tables), cmax) + first.shape[1:], dtype=first.dtype)
             for i, t in enumerate(tables):
                 arr[i, : t[k].shape[0]] = t[k]
-            out[k] = torch.as_tensor(arr, device=dev)
+            out[k] = to_device(arr, dev)
         moments, risetimes = self._post_factors(model, pb)
         # host FMM tables have ragged per-cell time runs: no uniform groups
         return out, moments, risetimes, (cmax,), 1
@@ -792,6 +800,7 @@ class Engine:
                     still.append((ckey, ov, event))
                     continue
                 event.synchronize()
+                count("syncs")
             self._drain_eik_overflow(ckey, ov)
         self._eik_pending = still
 
@@ -847,13 +856,15 @@ class Engine:
         return extent_b, dr, tr, rt
 
     def _ensure_plan(self, risetime_max, shape, stats, gsize=1):
-        bounds = self._plan_bounds(risetime_max, stats)
-        key = (*bounds, np.prod(shape), gsize)
-        if self._plan is None or self._plan_key != key:
-            self._plan = self._make_plan(*bounds, shape, gsize=gsize)
-            self._plan_key = key
-            self.plan_builds += 1
-        return self._plan
+        with span("kiwi.engine.plan"):
+            bounds = self._plan_bounds(risetime_max, stats)
+            key = (*bounds, np.prod(shape), gsize)
+            if self._plan is None or self._plan_key != key:
+                with span("kiwi.engine.plan_build"):
+                    self._plan = self._make_plan(*bounds, shape, gsize=gsize)
+                self._plan_key = key
+                self.plan_builds += 1
+            return self._plan
 
     def _current_tables(self):
         """The plan of the current source and its centroid tables (one row),
@@ -879,9 +890,10 @@ class Engine:
         way).  Host-discretized (eikonal) batches are discretized whole
         first, planned from the host param_stats, and the chunks take row
         slices of their centroid tables."""
-        pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
-        plan, rows, moments, risetimes, fwd = self._batch_plan(pb)
-        return self._run_rows(plan, fwd, rows, moments, risetimes, 0, pb.shape[0])
+        with span("kiwi.engine.batch"):
+            pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
+            plan, rows, moments, risetimes, fwd = self._batch_plan(pb)
+            return self._run_rows(plan, fwd, rows, moments, risetimes, 0, pb.shape[0])
 
     def _batch_plan(self, pb, shared=True):
         """(plan, rows, moments, risetimes, forward) of the batch pb,
@@ -906,28 +918,32 @@ class Engine:
         and rows slices their tables; device-discretized rows are
         discretized when asked for."""
         if model.host_discretize:
-            stats = self._param_stats(model, pb)
-            tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
+            with span("kiwi.engine.prep"):
+                stats = self._param_stats(model, pb)
+            with span("kiwi.synth.discretize"):
+                tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
 
             def rows(i, j):
                 return {k: v[i:j] for k, v in tables.items()}
             return rows, moments, risetimes, shape, gsize, stats
-        shape = self._batch_shape(model, pb)
-        moments, risetimes = self._post_factors(model, pb)
-        stats = self._param_stats(model, pb)
+        with span("kiwi.engine.prep"):
+            shape = self._batch_shape(model, pb)
+            moments, risetimes = self._post_factors(model, pb)
+            stats = self._param_stats(model, pb)
+            pbt = to_device(pb, self.device)
         edt = self.effective_dt
-        pbt = torch.as_tensor(pb, device=self.device)
 
         def rows(i, j):
-            return model.discretize(pbt[i:j], edt, shape)
+            with span("kiwi.synth.discretize"):
+                return model.discretize(pbt[i:j], edt, shape)
         return rows, moments, risetimes, shape, int(shape[-1]), stats
 
     def _run_rows(self, plan, fwd, rows, moments, risetimes, i0, i1):
         """fwd over the batch rows i0..i1-1, in balanced chunks of at most
         memory_budget bytes of per-source transients."""
-        dev = self.device
-        mts = torch.as_tensor(moments[i0:i1], device=dev)
-        rts = torch.as_tensor(risetimes[i0:i1], device=dev)
+        with span("kiwi.engine.prep"):
+            mts = to_device(moments[i0:i1], self.device)
+            rts = to_device(risetimes[i0:i1], self.device)
         b = i1 - i0
         chunk = max(1, min(b, self.memory_budget // max(plan["per_source_bytes"], 1)))
         chunk = -(-b // -(-b // chunk))  # balanced chunks
@@ -959,7 +975,8 @@ class Engine:
         """Global misfits f32[B] (minimizer_engine.f90:935-942) for parameter
         rows [B, nparams]."""
         m, n, _ = self.misfits_for_source_batch(params_batch)
-        return mf.global_misfit(m, n)
+        with span("kiwi.misfit.eval"):
+            return mf.global_misfit(m, n)
 
     def sweep_global_misfits(self, base_params, col, values):
         """Global misfits g f32[N] (a tensor on the engine's device) for a
@@ -974,6 +991,10 @@ class Engine:
         global_misfits_for_source_batch, one batch per discretization grid
         shape where the column changes it, as the JAX package's fallback does.
         """
+        with span("kiwi.engine.sweep"):
+            return self._sweep(base_params, col, values)
+
+    def _sweep(self, base_params, col, values):
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
         model = get_source_model(self.source_type)
@@ -993,17 +1014,23 @@ class Engine:
         hit = self._sweep_memo.get(mkey)
         if hit is not None and hit[0] is self._plan and (
                 hit[1] <= vmin and vmax <= hit[2]):
-            return hit[3](hit[4], torch.as_tensor(values, device=self.device))
+            with span("kiwi.engine.prep"):
+                valsj = to_device(values, self.device)
+            return hit[3](hit[4], valsj)
         # 3-row probe: host-side shape/stat/sharedness decisions cover the
         # sweep's full range without materializing the batch
         pb3 = np.tile(base, (3, 1))
         pb3[:, col] = (vmin, vmax, float(base[col]))
-        try:
-            shape = self._batch_shape(model, pb3)
-        except ValueError:
+        with span("kiwi.engine.prep"):
+            try:
+                shape = self._batch_shape(model, pb3)
+            except ValueError:
+                shape = None
+            else:
+                stats = self._param_stats(model, pb3)
+                _m3, r3 = self._post_factors(model, pb3)
+        if shape is None:
             return self._sweep_by_batches(model, base, col, values)
-        stats = self._param_stats(model, pb3)
-        _m3, r3 = self._post_factors(model, pb3)
         plan = self._ensure_plan(float(r3.max(initial=0.0)), shape, stats,
                                  gsize=int(shape[-1]))
         shared = model.shared_kin_check(pb3)
@@ -1016,16 +1043,20 @@ class Engine:
         fwd = plan["forward_shared_fused"]
 
         def sweep_fn(basej, vals):
-            pb = basej[None, :].repeat(n, 1)
-            pb[:, col] = vals
-            cb = model.discretize(pb, edt, shape)
-            moments, risetimes = model.post_factors_batch(pb)
+            with span("kiwi.synth.discretize"):
+                pb = basej[None, :].repeat(n, 1)
+                pb[:, col] = vals
+                cb = model.discretize(pb, edt, shape)
+                moments, risetimes = model.post_factors_batch(pb)
             m, nrm, _fs = fwd(cb, moments, risetimes[0])
-            return mf.global_misfit(m, nrm)
+            with span("kiwi.misfit.eval"):
+                return mf.global_misfit(m, nrm)
 
-        basej = torch.as_tensor(base, device=self.device)
+        with span("kiwi.engine.prep"):
+            basej = to_device(base, self.device)
+            valsj = to_device(values, self.device)
         self._sweep_memo[mkey] = (self._plan, vmin, vmax, sweep_fn, basej)
-        return sweep_fn(basej, torch.as_tensor(values, device=self.device))
+        return sweep_fn(basej, valsj)
 
     def _sweep_by_batches(self, model, base, col, values):
         """The sweep's rows through global_misfits_for_source_batch; if they
@@ -1042,7 +1073,7 @@ class Engine:
                 groups.setdefault(model.grid_shape(row, self.effective_dt), []).append(i)
             out = torch.zeros(len(pb), dtype=F32, device=self.device)
             for idx in groups.values():
-                out[torch.as_tensor(idx, device=self.device)] = (
+                out[to_device(idx, self.device)] = (
                     self.global_misfits_for_source_batch(pb[idx]).to(F32))
             return out
 
@@ -1053,7 +1084,7 @@ class Engine:
         cent = {k: v[0] for k, v in cbatch.items()}
         syn, lo, hi = to_host(*plan["synth_one"](
             cent, float(np.float32(moments[0])),
-            torch.tensor(risetimes[0], dtype=F32, device=self.device)))
+            to_device(risetimes[0], self.device, F32)))
         if not np.isfinite(syn).all():  # seismogram.f90:290-295's NaN/huge check
             LOG.warning("non-finite synthetic seismogram samples "
                         "(source outside the GF database's validity range?)")
@@ -1219,7 +1250,7 @@ class Engine:
         chunk = self._grad_chunk(plan, b)
         gs, grads = [], []
         for i in range(0, b, chunk):
-            leaf = torch.tensor(pb[i:i + chunk], device=self.device, requires_grad=True)
+            leaf = to_device(pb[i:i + chunk], self.device).requires_grad_()
             m, n = self._xla_misfits(model, plan, shape, leaf)
             sn = mf.stable_l2(n)
             g = mf.stable_l2(m) / torch.where(sn == 0.0, 1.0, sn)
@@ -1240,14 +1271,14 @@ class Engine:
         p = np.asarray(params, dtype=np.float32).reshape(-1)
         if mask is None:
             mask = np.ones(model.nparams, dtype=bool)
-        idx = torch.as_tensor(np.flatnonzero(np.asarray(mask, dtype=bool)), device=self.device)
+        idx = to_device(np.flatnonzero(np.asarray(mask, dtype=bool)), self.device)
         plan, shape = self._grad_plan(model, p[None, :])
         nrc = len(self._rc_layout())
         chunk = self._grad_chunk(plan, nrc)
         m0, rows = None, []
         for i in range(0, nrc, chunk):
             k = min(chunk, nrc - i)
-            leaf = torch.tensor(np.tile(p, (k, 1)), device=self.device, requires_grad=True)
+            leaf = to_device(np.tile(p, (k, 1)), self.device).requires_grad_()
             m, _n = self._xla_misfits(model, plan, shape, leaf)  # [k, RC]
             own = m[:, i:i + k].diagonal()  # copy j's row i + j
             (grad,) = torch.autograd.grad(own.sum(), leaf)
@@ -1296,11 +1327,10 @@ class Engine:
             cent = {k: v[0] for k, v in cbatch.items()}
             syn, lo, hi = plan["synth_one"](
                 cent, float(np.float32(moments[0])),
-                torch.tensor(risetimes[0], dtype=F32, device=dev))
+                to_device(risetimes[0], dev, F32))
             return plan, mf.place_on_probe(syn, plan["cfg"].out_it0, st), lo, hi
-        return (plan, torch.as_tensor(setup.ref, device=dev),
-                torch.as_tensor(setup.ref_lo, device=dev),
-                torch.as_tensor(setup.ref_hi, device=dev))
+        return (plan, to_device(setup.ref, dev), to_device(setup.ref_lo, dev),
+                to_device(setup.ref_hi, dev))
 
     def get_processed_seismograms(self, which="synthetics", processing="plain"):
         """[(values, itmin)] rows for output_seismograms: plain, tapered or
@@ -1408,11 +1438,11 @@ class Engine:
         plan, arr, lo, hi = self._probe_rows("synthetics")
         st, setup, dev = plan["st"], plan["setup"], self.device
         tap, filt = mf.processed_arrays(plan["ctx"], arr, st)
-        has_t = torch.as_tensor(setup.has_taper, device=dev)
-        rows = torch.where(torch.as_tensor(setup.has_filter, device=dev)[:, None], filt,
+        has_t = to_device(setup.has_taper, dev)
+        rows = torch.where(to_device(setup.has_filter, dev)[:, None], filt,
                            torch.where(has_t[:, None], tap, arr))
-        a = torch.where(has_t, torch.as_tensor(setup.taper_lo, device=dev), lo) - st.ps0
-        b = torch.where(has_t, torch.as_tensor(setup.taper_hi, device=dev), hi) - st.ps0
+        a = torch.where(has_t, to_device(setup.taper_lo, dev), lo) - st.ps0
+        b = torch.where(has_t, to_device(setup.taper_hi, dev), hi) - st.ps0
         length = torch.clamp(torch.clamp(b + 1, max=st.pl) - a, min=0)  # row[a:b + 1]
 
         layout = self._rc_layout()
@@ -1435,7 +1465,7 @@ class Engine:
                 groups.append(used + [-1] * (3 - len(used)))
         values = np.zeros(0)
         if groups:
-            idx = torch.as_tensor(groups, device=dev)  # [NG, 3], -1 = no row
+            idx = to_device(groups, dev)  # [NG, 3], -1 = no row
             live = idx >= 0
             idx_c = torch.clamp(idx, min=0)
             n = torch.where(live, length[idx_c], st.pl).amin(dim=1)  # [NG]
@@ -1452,14 +1482,3 @@ class Engine:
             values = to_host(res)[0]
         return np.array([0.0 if s is None else float(values[s]) for s in slots])
 
-
-def to_host(*tensors):
-    """Host numpy copies of tensors: from the card through pinned buffers
-    with one stream synchronization for all of them."""
-    if not tensors or tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
-    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for o, t in zip(out, tensors):
-        o.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [o.numpy() for o in out]

@@ -16,8 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
+from ..profiling import to_device
 from .trace import fnint, pack_trace
 
 
@@ -85,8 +85,7 @@ class GFStore:
 
     def to(self, device):
         """(data f32, itmin i32) tensors on `device`."""
-        return (torch.as_tensor(self.data, device=device),
-                torch.as_tensor(self.itmin, device=device))
+        return to_device(self.data, device), to_device(self.itmin, device)
 
     def save(self, path):
         np.savez_compressed(

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import to_host
+from ..profiling import span, to_host
 from .source import Source
 
 
@@ -161,6 +161,10 @@ class MisfitGrid:
 
     def compute(self, engine, chunk=512):
         """Run all sources through the engine in shape buckets."""
+        with span("kiwi.invert.grid"):
+            return self._compute(engine, chunk)
+
+    def _compute(self, engine, chunk):
         model = self.base_source.model
         edt = engine.effective_dt
         shapes = [model.grid_shape(p, edt) for p in self.params]
@@ -194,7 +198,8 @@ class MisfitGrid:
                 sels.extend(sel)
                 ms.append(m)
                 ns.append(n)
-        m, n = to_host(torch.cat(ms), torch.cat(ns))
+        with span("kiwi.invert.to_host"):
+            m, n = to_host(torch.cat(ms), torch.cat(ns))
         for irc, (r, k) in enumerate(slots):
             m_src[sels, r, k] = m[:, irc]
             n_src[sels, r, k] = n[:, irc]

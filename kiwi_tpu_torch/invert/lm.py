@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.optimize import leastsq
 
-from ..engine import to_host
+from ..profiling import span, to_host
 
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -60,6 +60,11 @@ def minimize_lm(engine, mask=None, subparam_mins=None, subparam_maxs=None,
 
     Returns (info, nfev, final_global_misfit).
     """
+    with span("kiwi.invert.lm"):
+        return _minimize_lm(engine, mask, subparam_mins, subparam_maxs, method)
+
+
+def _minimize_lm(engine, mask, subparam_mins, subparam_maxs, method):
     from ..sources import get_source_model
 
     model = get_source_model(engine.source_type)

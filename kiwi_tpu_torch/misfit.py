@@ -27,6 +27,7 @@ import torch
 
 from .ops.float_scan import fused_scan_sums, scan_sums
 from .plf import PLF
+from .profiling import to_device, to_host
 
 F32 = torch.float32
 I32 = torch.int32
@@ -183,7 +184,7 @@ class MisfitSetup:
         s0 = float(np.abs(self.ref).max()) if amp_scale is None else float(amp_scale)
         if not np.isfinite(s0) or s0 == 0.0:
             s0 = 1.0
-        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        t = lambda a: to_device(a, device)  # noqa: E731
         ctx = {
             "amp_scale": s0,
             "ref": t(self.ref / np.float32(s0)),
@@ -308,7 +309,7 @@ def fold_stf_weights(risetime, dt, nshift_max):
     from .gf.trace import jnint
 
     risetime = torch.as_tensor(risetime, dtype=F32)[..., None]
-    dt = torch.as_tensor(dt, dtype=F32, device=risetime.device)
+    dt = to_device(dt, risetime.device, F32)
     k = torch.arange(2 * nshift_max + 1, dtype=F32, device=risetime.device) - nshift_max
     ts = k * dt
     lo = torch.maximum(-risetime / 2.0, ts - dt / 2.0)
@@ -675,7 +676,7 @@ def _floating_select(ctx, rctx, sums, st: ProbeStatic, nrec, rids=None):
     # per-receiver shift selection: the receiver's allowed window is the
     # min/max over its rows (segment_min/max in the reference)
     if rids is None:
-        rids = ctx["receiver_ids"].cpu().numpy()
+        rids = to_host(ctx["receiver_ids"])[0]
     rid_t = ctx["receiver_ids"].long()
     rlo = torch.full((nrec,), 1 << 30, dtype=I32, device=ms.device).scatter_reduce(
         0, rid_t, ctx["shift_lo"], reduce="amin")

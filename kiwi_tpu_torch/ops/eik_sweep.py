@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from ..profiling import to_device
 from . import build, refuse_grad
 
 F32 = torch.float32
@@ -136,7 +137,7 @@ def sweep_solve_batch_reference(speed, delta, first, initial_point, n_rounds=3):
     sum2 = da2 + dc2
     rsum2 = 1.0 / sum2
     da2dc2 = da2 * dc2
-    diags = [[torch.as_tensor(c, device=dev) for c in steps] for steps in _diagonals(nx, ny)]
+    diags = [[to_device(c, dev) for c in steps] for steps in _diagonals(nx, ny)]
     for _ in range(n_rounds):
         for steps in diags:
             for idx in steps:

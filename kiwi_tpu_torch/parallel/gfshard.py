@@ -83,9 +83,9 @@ class GFShardedPlan:
         length: ValueError naming what leaves the coverage."""
         cfg = self.cfg
         eng = self.engine
-        north, east, depth, time = (cbatch[k].detach().cpu().numpy()
+        north, east, depth, time = (to_host(cbatch[k].detach())[0]
                                     for k in ("north", "east", "depth", "time"))
-        act = (cbatch["active"].detach().cpu().numpy().astype(bool) if "active" in cbatch
+        act = (to_host(cbatch["active"].detach())[0].astype(bool) if "active" in cbatch
                else np.ones(north.shape, bool))
         if not act.any():
             return

@@ -155,15 +155,14 @@ def sharded_forward(engine, params_batch, mesh):
     synthesis where the kernel does not apply, then the scan kernel on
     unfiltered floating plans), and the rows are gathered and the pad rows
     cut off."""
-    from ..engine import to_host
+    from ..profiling import to_device, to_host
 
     check_device(engine, mesh)
     pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
     padded, lo, hi = source_block(mesh, pb)
     plan, rows, moments, risetimes, fwd = engine._batch_plan(padded, shared=False)
     out = to_host(*engine._run_rows(plan, fwd, rows, moments, risetimes, lo, hi))
-    return tuple(torch.as_tensor(x, device=engine.device)
-                 for x in gather_source_rows(mesh, out, pb.shape[0]))
+    return tuple(to_device(x, engine.device) for x in gather_source_rows(mesh, out, pb.shape[0]))
 
 
 def sharded_grad(engine, params_batch, mesh):

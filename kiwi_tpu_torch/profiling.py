@@ -1,21 +1,26 @@
-"""Timing / throughput observability (SURVEY §5 tracing; port of
-kiwi_tpu/profiling.py).
+"""The port's spans and counters, and the two copies through which the
+host waits for the card.
 
-The reference has inform() messages, test_begin/test_end cpu_time pairs
-(util.f90:170-215) and kiwibench's rolling models-per-second counter
-(benchmark/kiwibench.py:135-148).  Here:
+* `span(name)` -- a named range at a layer boundary, `kiwi.<layer>.<step>`
+  (layers `invert`, `engine`, `synth`, `misfit`).  With spans off (the
+  default) it returns one shared no-op context, so a site costs one read of
+  a module global; with spans on (`enable()`, or inside `torch_trace`) it
+  opens a `torch.profiler.record_function` range, which sits in the
+  profiler's trace on the same clock as the card's kernels and copies, its
+  parent the range that encloses it on the thread.
+* `count(name, n=1)` -- plain integer counters, always on (one dict update
+  a site); `snapshot()` copies them, with the kernels' launch counters
+  (`ops.*.launches`) under `launches.<kernel>`.
+* `to_host(*tensors)` and `to_device(x, device)` -- every copy at which the
+  host waits for the card goes through one of them and is counted:
+  `syncs` counts each wait (a stream synchronization, a blocking copy),
+  `h2d_pageable` the host-to-device copies from pageable memory among
+  them.  They count by site, whatever the device, so that a CPU session
+  counts what a session on the card waits for.
+* `torch_trace(logdir)` -- torch.profiler around a block with the spans on,
+  written as a Chrome trace (chrome://tracing or Perfetto).
 
-* `Timers` -- named accumulating wall-time phases (context manager),
-* `MPSCounter` -- the canonical models/sec metric with rolling windows,
-* `torch_trace` -- a thin gate around torch.profiler for kernel-level
-  traces (a Chrome trace: chrome://tracing or Perfetto).
-
-Work on the card is asynchronous: a torch call returns once its kernels are
-queued.  A `Timers` block therefore times what the host did and what had
-finished on the card when the block exited, not the card work it queued;
-end the block in something that waits for the card (a copy to the host,
-torch.cuda.synchronize()) to time that work.  Timers does not synchronize
-by itself, as the JAX package's does not block.
+Counters of the port's own objects stay with them: `Engine.plan_builds`.
 """
 
 from __future__ import annotations
@@ -24,87 +29,90 @@ import contextlib
 import os
 import time
 
+import torch
+from torch.profiler import record_function
 
-class Timers:
-    """Accumulating named wall-time phases."""
-
-    def __init__(self):
-        self.acc = {}
-        self.counts = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            dt = time.time() - t0
-            self.acc[name] = self.acc.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self):
-        total = sum(self.acc.values()) or 1.0
-        rows = sorted(self.acc.items(), key=lambda kv: -kv[1])
-        return "\n".join(
-            f"{k:24s} {v:9.3f} s  {100 * v / total:5.1f}%  ({self.counts[k]}x)"
-            for k, v in rows
-        )
-
-    def reset(self):
-        self.acc.clear()
-        self.counts.clear()
+_enabled = False
+_NOOP = contextlib.nullcontext()
+counters: dict[str, int] = {}
 
 
-class MPSCounter:
-    """Rolling models-per-second (kiwibench.py:135-148's MPS triple:
-    total average / last-window average / instantaneous)."""
+def enable():
+    """Turn the spans on."""
+    global _enabled
+    _enabled = True
 
-    def __init__(self, window=10):
-        self.window = window
-        self.t0 = time.time()
-        self.events = []  # (t, nmodels)
-        self.total = 0
 
-    def add(self, nmodels):
-        now = time.time()
-        self.events.append((now, nmodels))
-        self.total += nmodels
-        if len(self.events) > self.window:
-            self.events.pop(0)
+def disable():
+    """Turn the spans off."""
+    global _enabled
+    _enabled = False
 
-    def rates(self):
-        """(total_avg, window_avg, last) models/sec."""
-        now = time.time()
-        total_avg = self.total / max(now - self.t0, 1e-9)
-        if len(self.events) >= 2:
-            span = self.events[-1][0] - self.events[0][0]
-            nwin = sum(n for _, n in self.events[1:])
-            window_avg = nwin / max(span, 1e-9)
-        else:
-            window_avg = total_avg
-        if len(self.events) >= 2:
-            dt = self.events[-1][0] - self.events[-2][0]
-            last = self.events[-1][1] / max(dt, 1e-9)
-        else:
-            last = total_avg
-        return total_avg, window_avg, last
+
+def span(name):
+    """A `record_function(name)` range while spans are on, else a shared no-op."""
+    if not _enabled:
+        return _NOOP
+    return record_function(name)
+
+
+def count(name, n=1):
+    counters[name] = counters.get(name, 0) + n
+
+
+def snapshot():
+    """A copy of the counters, the kernels' launch counters included."""
+    from .ops import eik_sweep, float_scan, synth_window
+
+    out = dict(counters)
+    for mod in (float_scan, synth_window, eik_sweep):
+        for k, v in mod.launches.items():
+            out["launches." + k] = v
+    return out
+
+
+def to_host(*tensors):
+    """Host numpy copies of tensors: from the card through pinned buffers
+    with one stream synchronization for all of them (one `syncs`)."""
+    count("syncs")
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for o, t in zip(out, tensors):
+        o.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [o.numpy() for o in out]
+
+
+def to_device(x, device, dtype=None):
+    """torch.as_tensor(x, dtype, device) of host data (an array, a list, a
+    number): on the card a copy from pageable memory, which the host waits
+    for (one `syncs`, one `h2d_pageable`)."""
+    count("syncs")
+    count("h2d_pageable")
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager
 def torch_trace(logdir):
-    """torch.profiler trace around a block (host activity, and the card's
-    where there is one), written on exit as a Chrome trace
+    """torch.profiler trace around a block (host activity, the port's spans,
+    and the card's where there is one), written on exit as a Chrome trace
     `trace-<time>-<pid>.json` into logdir.  Yields that file's path.  The
     block's queued card work is waited for before the trace stops."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.json")
-    with profile(activities=activities) as prof:
-        yield path
-        if cuda:
-            torch.cuda.synchronize()
+    was = _enabled
+    enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield path
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        if not was:
+            disable()
     prof.export_chrome_trace(path)

@@ -32,6 +32,7 @@ from .. import eikonal as eik
 from .. import geometry as geom
 from ..euler import init_euler
 from ..plf import PLF
+from ..profiling import to_device
 from .base import SourceModel, register
 
 F32 = torch.float32
@@ -682,12 +683,11 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
     dev = torch.device(device)
     nfx, nfy = static["NF"]
     ncx, ncy = static["NC"]
-    layer_depths = torch.as_tensor(np.asarray(ctx.layer_depths), dtype=F32, device=dev)
-    layer_vs = torch.as_tensor(np.asarray(ctx.layer_vs), dtype=F32, device=dev)
-    cons = [(torch.as_tensor(np.asarray(p), dtype=F32, device=dev),
-             torch.as_tensor(np.asarray(n), dtype=F32, device=dev))
+    layer_depths = to_device(np.asarray(ctx.layer_depths), dev, F32)
+    layer_vs = to_device(np.asarray(ctx.layer_vs), dev, F32)
+    cons = [(to_device(np.asarray(p), dev, F32), to_device(np.asarray(n), dev, F32))
             for p, n in ctx.constraints]
-    edt = torch.tensor(effective_dt, dtype=F32, device=dev)
+    edt = to_device(effective_dt, dev, F32)
     ax = torch.arange(nfx, device=dev)
     ay = torch.arange(nfy, device=dev)
 
@@ -809,8 +809,7 @@ def discretize_device_batch(static, arrays, effective_dt, ctx, nt_cell_max,
     fn = make_device_discretizer(static, effective_dt, ctx, nt_cell_max, n_rounds,
                                  ncell_budget=ncell_budget, device=device)
     adev = {
-        k: torch.as_tensor(np.asarray(v), dtype=I32 if v.dtype.kind == "i" else F32,
-                           device=device)
+        k: to_device(np.asarray(v), device, I32 if v.dtype.kind == "i" else F32)
         for k, v in arrays.items()
     }
     return fn(adev)

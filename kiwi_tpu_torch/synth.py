@@ -30,6 +30,7 @@ from . import geo
 from .gf.store import GFStore
 from .gf.trace import jnint, sample_ext
 from .ops import synth_window
+from .profiling import to_device
 
 F32 = torch.float32
 F64 = torch.float64
@@ -61,9 +62,9 @@ class ReceiverGeometry:
             self, **{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)})
 
     def to(self, device):
-        out = {k: torch.as_tensor(getattr(self, k), dtype=F64, device=device)
+        out = {k: to_device(getattr(self, k), device, F64)
                for k in ("azi", "bazi", "dist", "sin_azi", "cos_azi", "sin_b", "cos_b")}
-        out["depth"] = torch.as_tensor(self.depth, dtype=F32, device=device)
+        out["depth"] = to_device(self.depth, device, F32)
         return out
 
 
@@ -634,7 +635,7 @@ def plan_config(
 def window_arrays(store: GFStore, cfg: SynthConfig, device):
     """(data, itmin, nsamples) tensors of the GF window selected by cfg."""
     sl = np.s_[cfg.ix0 : cfg.ix0 + cfg.nxw, cfg.iz0 : cfg.iz0 + cfg.nzw]
-    return tuple(torch.as_tensor(np.ascontiguousarray(a[sl]), device=device)
+    return tuple(to_device(np.ascontiguousarray(a[sl]), device)
                  for a in (store.data, store.itmin, store.nsamples))
 
 

@@ -1,26 +1,26 @@
-"""The small CLI tools (kiwi_tpu_torch.cli.tools) and the timing helpers
-(kiwi_tpu_torch.profiling) of the port against kiwi_tpu's on the CPU.
+"""The small CLI tools (kiwi_tpu_torch.cli.tools) of the port against
+kiwi_tpu's on the CPU, and the port's trace exporter
+(kiwi_tpu_torch.profiling.torch_trace).
 
 source_info, eulermt, crust and differential_azidist print identical
 stdout; ahfull writes byte-identical files; eikonal_benchmark prints the
 reference's two lines (its device line here on the CPU, through the sweep
 kernel's plain version); the port's sweep_solve at the benchmark's inputs
 agrees with kiwi_tpu.eikonal.sweep_solve to 1e-4 relative
-(tests/test_torch_eikonal.py's bar against the XLA sweep); Timers and
-MPSCounter report the same under one patched clock.
+(tests/test_torch_eikonal.py's bar against the XLA sweep); torch_trace
+writes a Chrome trace.
 """
 
 import json
 import os
 import re
-import time
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from kiwi_tpu import eikonal as jeik, profiling as jprof
+from kiwi_tpu import eikonal as jeik
 from kiwi_tpu.cli import tools as jtools
 from kiwi_tpu_torch import eikonal as teik, profiling as tprof
 from kiwi_tpu_torch.cli import tools as ttools
@@ -97,41 +97,6 @@ def test_sweep_solve_at_benchmark_inputs():
                            n_rounds=8).numpy()
     assert got.shape == (n, n) and (want < 1e29).all()
     assert float((np.abs(got - want) / np.maximum(np.abs(want), 1e-6)).max()) <= 1e-4
-
-
-class _Clock:
-    """time.time stand-in: each call advances by the next step."""
-
-    def __init__(self, steps):
-        self.t = 1000.0
-        self.steps = list(steps)
-
-    def __call__(self):
-        self.t += self.steps.pop(0) if self.steps else 0.25
-        return self.t
-
-
-def _drive(mod, monkeypatch):
-    monkeypatch.setattr(time, "time", _Clock([0.5, 1.25, 0.125, 2.0, 0.75, 0.5, 3.0, 0.1]))
-    timers = mod.Timers()
-    for name in ("synth", "misfit", "synth", "io"):
-        with timers(name):
-            pass
-    mps = mod.MPSCounter(window=3)
-    rates = [mps.rates()]
-    for n in (100, 250, 75, 400, 10):
-        mps.add(n)
-        rates.append(mps.rates())
-    report = timers.report()
-    timers.reset()
-    return report, rates, timers.acc, timers.counts
-
-
-def test_timers_and_mps_counter_match(monkeypatch):
-    want = _drive(jprof, monkeypatch)
-    got = _drive(tprof, monkeypatch)
-    assert got == want
-    assert "synth" in got[0] and "(2x)" in got[0]
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
