@@ -161,7 +161,11 @@ and fails on the first phase that goes wrong:
    on a CPU engine set up from the same data directory (misfits and norms
    at 1e-5); the web phase's first generation against an Engine on the CPU
    set up from the same form (the same rows and itmin, values at 1e-5 of
-   each row's largest);
+   each row's largest); then the bilateral tables kernel against its plain
+   version, bit for bit, on the rows of one sweep call (14,440 on
+   (1, 1, 3)) and of a grid compute's chunks (512 and 440 on (13, 5, 3)),
+   timed as in 3 beside the bound of its bytes (every bilateral path on
+   the card must launch it, the gradient must not);
 8. trace 5 calls of each point sweep, 5 unfiltered finite batches, 5
    eikonal calls, 2 grid computes, 2 LM runs from the start, 2 timed
    mini.inp blocks, 1 protocol session, 2 gradient calls of 64 rows and 2
@@ -291,6 +295,7 @@ SOURCES = {
     "window_synth": "kiwi_tpu_torch/csrc/synth_window.cu",
     "scan_sums": "kiwi_tpu_torch/csrc/scan_sums.cu",
     "eik_sweep": "kiwi_tpu_torch/csrc/eik_sweep.cu",
+    "bilat_tables": "kiwi_tpu_torch/csrc/bilat_tables.cu",
 }
 # the device kernels of each wrapper, as torch.profiler names them
 KERNELS = {
@@ -299,6 +304,7 @@ KERNELS = {
     "window_synth": ("window_direct_kernel", "window_tile_kernel"),
     "scan_sums": ("scan_sums_kernel",),
     "eik_sweep": ("eik_wavefront_kernel", "eik_diagonal_kernel"),
+    "bilat_tables": ("bilat_tables_kernel",),
 }
 REPLACES = {
     "fused_scan": "kiwi_tpu/ops/float_scan.py:193",
@@ -308,6 +314,8 @@ REPLACES = {
     # _scan_kernel; also _scan_kernel_blocked (:78)
     "scan_sums": "kiwi_tpu/ops/float_scan.py:61",
     "eik_sweep": "kiwi_tpu/ops/eik_sweep.py:44",
+    # no Pallas kernel: XLA fuses the JAX package's discretization
+    "bilat_tables": "XLA fusion of kiwi_tpu/sources/bilat.py:73",
 }
 
 
@@ -918,16 +926,75 @@ def check_eikonal_kernel(eng, radii, results):
     check_window(*windows[0], "eikonal", results)
 
 
+def check_bilat(sweep_eng, packed, grid, grid_eng, results):
+    """The bilateral tables kernel against its plain version on the rows of
+    the main paths' own calls: one sweep call (14,440 rows on (1, 1, 3))
+    and the last chunk of each size of a grid compute (512 and 440 rows on
+    (13, 5, 3)).  Every table must equal the plain version's bit for bit
+    (the float tables compared as int32).  Timed as in 3 beside the plain
+    version and the bound of its bytes; the sweep call's numbers are the
+    kernels line's."""
+    import torch
+
+    from kiwi_tpu_torch.ops import bilat_tables as bl
+    from kiwi_tpu_torch.sources import bilat
+
+    sweep = capture(bl, "bilat_tables", lambda: sweep_eng.sweep_global_misfits(BASE, 5, packed))
+    if len(sweep) != 1:
+        fail(f"expected one bilat_tables call per sweep, saw {len(sweep)}")
+    chunks = capture(bl, "bilat_tables", lambda: grid.compute(grid_eng),
+                     key=lambda args: int(args[0].shape[0]))
+    if len(chunks) < 2:
+        fail(f"expected grid chunks of two sizes, saw {[int(a[0].shape[0]) for a, _ in chunks]}")
+    rec = results["bilat_tables"] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                     "library_ms": None}  # no PyTorch call computes the tables
+    for i, ((params, shape), _kw) in enumerate(sweep + chunks):
+        B, C = params.shape[0], shape[0] * shape[1] * shape[2]
+        got = bl.bilat_tables(params, shape)
+        want = bilat.discretize_reference(params, shape)
+        ndiff = {}
+        for k, w in want.items():
+            g = got[k]
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"bilat_tables {k}: {g.dtype} {tuple(g.shape)}, plain {w.dtype} "
+                     f"{tuple(w.shape)}")
+            if w.dtype == torch.float32:
+                rec["max_abs_err"] = max(rec["max_abs_err"], float((g - w).abs().max()))
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            ndiff[k] = int((g != w).sum())
+        log(f"  bilat_tables: B={B} shape {tuple(shape)}: entries that differ from the plain "
+            f"version {ndiff}")
+        if any(ndiff.values()):  # the kernel rounds as the plain version does on the card
+            fail(f"bilat_tables differs from its plain version (B={B}, {tuple(shape)}): {ndiff}")
+
+        def tables():
+            return bl.bilat_tables(params, shape)
+
+        ms, others = device_ms(tables, 20, KERNELS["bilat_tables"])
+        wrapper_ms = cuda_ms(tables, 20)
+        plain_ms = cuda_ms(lambda: bilat.discretize_reference(params, shape), 3)
+        # each row read once (14 floats), each entry written once: north,
+        # east, depth, time, the 6 floats of m and the active byte; the
+        # operations are not counted
+        bound_ms, bound_by = bound(56 * B + 41 * B * C, 0)
+        log(f"  bilat_tables: B={B}: kernel {ms:.4f} ms on the device (20 wrapper calls: "
+            f"{wrapper_ms:.4f} ms each by CUDA events; other device ops a call {others}), "
+            f"plain torch {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        if i == 0:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def run_main_path(label, launch_names, run):
     """run() with every launch counter set to 0 just before and read just
     after; fails unless each of the path's kernels was launched."""
-    from kiwi_tpu_torch.ops import eik_sweep as es, float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.ops import (bilat_tables as bl, eik_sweep as es, float_scan as fs,
+                                    synth_window as sw)
 
-    for counts in (fs.launches, sw.launches, es.launches):
+    for counts in (fs.launches, sw.launches, es.launches, bl.launches):
         for k in counts:
             counts[k] = 0
     out = run()
-    counts = {**fs.launches, **sw.launches, **es.launches}
+    counts = {**fs.launches, **sw.launches, **es.launches, **bl.launches}
     log(f"phase launches on the main path ({label}): {counts}")
     for name in launch_names:
         if counts[name] <= 0:
@@ -1204,7 +1271,7 @@ def multidevice_rank(pb, pb_pad, rows):
     import torch.distributed as dist
 
     from kiwi_tpu_torch import misfit as mf
-    from kiwi_tpu_torch.ops import float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.ops import bilat_tables as bl, float_scan as fs, synth_window as sw
     from kiwi_tpu_torch.parallel import gfshard, make_mesh, sharded_forward
 
     dev = torch.device("cuda", 0)
@@ -1215,7 +1282,7 @@ def multidevice_rank(pb, pb_pad, rows):
     out = {"rank": dist.get_rank(), "device": str(m41.device)}
 
     def run(label, fn, forward=True):
-        for counts in (fs.launches, sw.launches):
+        for counts in (fs.launches, sw.launches, bl.launches):
             for k in counts:
                 counts[k] = 0
         windows, scans = [], []
@@ -1231,7 +1298,7 @@ def multidevice_rank(pb, pb_pad, rows):
         torch.cuda.synchronize()
         out[label] = {"result": [np.asarray(x.cpu() if torch.is_tensor(x) else x) for x in res],
                       "seconds": time.perf_counter() - t0,
-                      "launches": {**fs.launches, **sw.launches}}
+                      "launches": {**fs.launches, **sw.launches, **bl.launches}}
         if forward:  # after the launches are read: these do not count
             out[label]["held"] = held_on_rank(windows, scans)
 
@@ -1258,8 +1325,8 @@ def multidevice_rank(pb, pb_pad, rows):
 
 def run_multidevice(finite_eng, grad, out, results):
     """The multi-device phase: MD_RANKS ranks (spawn_ranks) share the card;
-    each mesh's forwards must launch window_synth and scan_sums in every
-    rank (the gradient none), and each kernel must agree with its plain
+    each mesh's forwards must launch window_synth, scan_sums and
+    bilat_tables in every rank (the gradient none), and each kernel must agree with its plain
     version on every call a rank captured from its forwards (into results,
     as record_err records), the 1 x 4 shards' windows must be narrower
     than the whole plan's, every rank must hold the same rows, and rank 0's
@@ -1281,7 +1348,8 @@ def run_multidevice(finite_eng, grad, out, results):
         if not r["device"].startswith("cuda"):
             fail(f"multidevice: rank {r['rank']} on {r['device']}")
         for label in forwards:
-            if min(r[label]["launches"][k] for k in ("window_synth", "scan_sums")) <= 0:
+            if min(r[label]["launches"][k] for k in ("window_synth", "scan_sums",
+                                                     "bilat_tables")) <= 0:
                 fail(f"multidevice: rank {r['rank']} {label} launched {r[label]['launches']}")
             names = {h[0] for h in r[label]["held"]}
             if names != {"window_synth", "scan_sums"}:
@@ -2524,7 +2592,8 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(kiwi_tpu_torch.__file__))) != HERE:
         fail(f"kiwi_tpu_torch imported from {kiwi_tpu_torch.__file__}, not this checkout")
-    from kiwi_tpu_torch.ops import build, eik_sweep as es, float_scan as fs, synth_window as sw
+    from kiwi_tpu_torch.ops import (bilat_tables as bl, build, eik_sweep as es, float_scan as fs,
+                                    synth_window as sw)
 
     if any(m == "jax" or m.startswith(("jax.", "kiwi_tpu.")) or m == "kiwi_tpu"
            for m in sys.modules):
@@ -2537,6 +2606,7 @@ def main():
     fs._scan_library()
     sw._library()
     es._library()
+    bl._library()
     log(f"phase build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
@@ -2586,29 +2656,32 @@ def main():
         f"{long_build_s:.1f} s")
     long_eng = make_long_engine(long_store, dev)
     mps, counts = {}, {}
+    # every bilateral path on the card discretizes through bilat_tables
     paths = (
-        ("unfiltered", ("fused_scan",),
+        ("unfiltered", ("fused_scan", "bilat_tables"),
          lambda: run_sweep(engines["unfiltered"], packed, "unfiltered")),
-        ("filtered", ("fused_scan_masked",),
+        ("filtered", ("fused_scan_masked", "bilat_tables"),
          lambda: run_sweep(engines["filtered"], packed, "filtered")),
-        ("finite", ("window_synth", "scan_sums"),
+        ("finite", ("window_synth", "scan_sums", "bilat_tables"),
          lambda: run_finite(finite["finite"], batches, "unfiltered")),
-        ("finite_filtered", ("window_synth",),
+        ("finite_filtered", ("window_synth", "bilat_tables"),
          lambda: run_finite(finite["finite_filtered"], batches[:4], "filtered")),
         ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
-        ("grid", ("window_synth", "scan_sums"), lambda: run_grid(finite["finite"], inv)),
-        ("lm", ("window_synth",), lambda: run_lm(lm, lm_start, inv)),
+        ("grid", ("window_synth", "scan_sums", "bilat_tables"),
+         lambda: run_grid(finite["finite"], inv)),
+        ("lm", ("window_synth", "bilat_tables"), lambda: run_lm(lm, lm_start, inv)),
         ("gradient", (), lambda: run_gradient(grad_eng, inv)),
-        ("long_window", ("scan_sums",), lambda: run_long_window(long_eng, inv)),
-        ("protocol", ("window_synth", "scan_sums"), lambda: run_protocol(inv)),
-        ("pipeline", ("window_synth",), lambda: run_pipeline(store, inv)),
+        ("long_window", ("scan_sums", "bilat_tables"), lambda: run_long_window(long_eng, inv)),
+        ("protocol", ("window_synth", "scan_sums", "bilat_tables"), lambda: run_protocol(inv)),
+        ("pipeline", ("window_synth", "bilat_tables"), lambda: run_pipeline(store, inv)),
         # kiwi_main runs in autokiwi's child process: its launches count there
         ("autokiwi", (), lambda: run_autokiwi(inv)),
         # host paths: the builder's workers, the FDSN client, the web forward
         # (plain synthesis, host FMM) and the small tools launch no kernel
+        # but the tables kernel of the synthetics' discretization on the card
         ("gfdb", (), lambda: run_gfdb(store)),
-        ("acquisition", (), lambda: run_acquisition(store)),
-        ("web", (), lambda: run_web(store, inv)),
+        ("acquisition", ("bilat_tables",), lambda: run_acquisition(store)),
+        ("web", ("bilat_tables",), lambda: run_web(store, inv)),
         ("tools", (), run_small_tools),
         ("eikonal_benchmark", ("eik_sweep",), lambda: run_eikonal_benchmark(inv)),
     )
@@ -2619,10 +2692,13 @@ def main():
     mps["multidevice"] = run_multidevice(finite["finite"], inv["gradient"], inv, results)
     counts["multidevice"] = {name: 0 for name in REPLACES} | inv["multidevice"]["launches"]
     launches = {name: sum(c[name] for c in counts.values()) for name in REPLACES}
-    # the gradient differentiates the plain formulation: no kernel; the long
-    # window's plan has no window kernel
+    # the gradient differentiates the plain formulation: no kernel; the
+    # acquisition's and the web's synthetics are plain torch after the
+    # tables kernel; the long window's plan has no window kernel
     if (any(counts[label][k] for label in ("gradient", "gfdb", "acquisition", "web", "tools")
-            for k in counts[label]) or counts["long_window"]["window_synth"]):
+            for k in counts[label]
+            if not (label in ("acquisition", "web") and k == "bilat_tables"))
+            or counts["long_window"]["window_synth"]):
         fail("kernels launched where none may be: " + ", ".join(
             f"{label} {counts[label]}" for label in ("gradient", "long_window", "gfdb",
                                                      "acquisition", "web", "tools")))
@@ -2638,6 +2714,8 @@ def main():
     for part, ops in inv["protocol"]["ops"].items():
         log(f"phase kernel-vs-plain window_synth, scan_sums (protocol {part} call operands):")
         check_captured(f"protocol {part}", *ops, results)
+    log("phase kernel-vs-plain bilat_tables (point sweep and grid chunk rows):")
+    check_bilat(engines["unfiltered"], packed, inv["grid"], finite["finite"], results)
     log("phase kernel-vs-plain scan_sums (long window call operands):")
     check_captured("long window", [], inv["long_ops"], results)
     log("phase kernel-vs-plain window_synth (pipeline call operands):")

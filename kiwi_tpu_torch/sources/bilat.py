@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import bilat_tables
 from .base import (
     _cols_const,
     DEG2RAD_F32,
@@ -72,7 +73,19 @@ def grid_shape(params, effective_dt):
 
 def discretize(params, effective_dt, shape):
     """Centroid tables [B, nx*ny*nt] for a batch of parameter rows
-    f32[B, 14] (psm_to_tdsm_table_bilat, source_bilat.f90:318-459)."""
+    f32[B, 14] (psm_to_tdsm_table_bilat, source_bilat.f90:318-459).
+
+    Rows that need no gradient go to the tables wrapper (ops/bilat_tables.py:
+    one kernel launch on the card, rounded as the plain version rounds there;
+    the plain version on the CPU); the gradient paths' leaves take the plain
+    version, which is differentiable."""
+    if params.requires_grad:
+        return discretize_reference(params, shape)
+    return bilat_tables.bilat_tables(params.to(torch.float32), shape)
+
+
+def discretize_reference(params, shape):
+    """discretize in plain torch, differentiable: ~280 small device ops."""
     nx, ny, nt = shape
     p = params.to(torch.float32)
     bsz = p.shape[0]

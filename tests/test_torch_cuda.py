@@ -7,17 +7,19 @@ has no JAX, and tests/conftest.py imports it, so run them there with
 
 The kernels sum in another order than the plain versions (FMA contraction,
 partial sums), so the comparison is relative to the output's max at 1e-5,
-the repo's on-card bar.  The eikonal sweep kernel rounds as its plain
-version does (no contraction, the same update order), so it must equal it
-bit for bit.
+the repo's on-card bar.  The eikonal sweep kernel and the bilateral tables
+kernel round as their plain versions do on the card (no contraction, the
+same operations in the same order), so they must equal them bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import bilat_cases
 import span_cases
-from kiwi_tpu_torch.ops import eik_sweep, float_scan, synth_window
+from kiwi_tpu_torch.ops import bilat_tables, eik_sweep, float_scan, synth_window
+from kiwi_tpu_torch.sources import bilat
 
 pytestmark = pytest.mark.cuda
 
@@ -414,6 +416,39 @@ def test_eik_sweep_kernel_rejects(cuda_dev):
         eik_sweep.sweep_solve_batch(speed.double(), delta, first, ip)
     with pytest.raises(ValueError, match="one device"):
         eik_sweep.sweep_solve_batch(speed, delta.cpu(), first, ip)
+
+
+@pytest.mark.parametrize("name", sorted(bilat_cases.CASES))
+def test_bilat_tables_equal_the_plain_chain(cuda_dev, name):
+    """The bilateral discretization on the card: one launch whose six tables
+    equal the plain chain's on the card bit for bit (bilat_cases.py)."""
+    rows, shape = bilat_cases.case(name)
+    p = torch.as_tensor(rows, device=cuda_dev)
+    before = bilat_tables.launches["bilat_tables"]
+    got = bilat.discretize(p, bilat_cases.EDT, shape)
+    torch.cuda.synchronize()
+    assert bilat_tables.launches["bilat_tables"] == before + 1
+    want = bilat.discretize_reference(p, shape)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous(), k
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), (k, int((g != w).sum()))
+
+
+def test_bilat_gradient_takes_the_plain_chain(cuda_dev):
+    """Rows that require grad (the gradient paths' leaves) take the plain
+    chain: no launch, and the gradient reaches the parameters."""
+    rows, shape = bilat_cases.case("lm4")
+    leaf = torch.as_tensor(rows, device=cuda_dev).requires_grad_()
+    before = bilat_tables.launches["bilat_tables"]
+    tables = bilat.discretize(leaf, bilat_cases.EDT, shape)
+    (tables["time"].sum() + tables["depth"].sum() + tables["m"].sum()).backward()
+    assert bilat_tables.launches["bilat_tables"] == before
+    assert torch.isfinite(leaf.grad).all()
+    assert (leaf.grad[:, [0, 3, 5, 6, 7, 9, 10, 12]] != 0).all()
 
 
 def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
