@@ -467,8 +467,9 @@ class Engine:
             if fold_max > 0:
                 w = mf.fold_stf_weights(risetime, st.dt, fold_max)
                 syn_rc = mf.apply_fold(syn_rc, w)
-                lo_rc = lo_rc - fold_max
-                hi_rc = hi_rc + fold_max
+                half = torch.clamp(mf.fold_half(risetime, st.dt), max=fold_max)
+                lo_rc = lo_rc - half
+                hi_rc = hi_rc + half
             return syn_rc * moment, lo_rc, hi_rc
 
         # uniform rc layout (every receiver contributes the same rows,
@@ -688,8 +689,9 @@ class Engine:
         dev = self.device
         edt = self.effective_dt
         if self.eikonal_device and len(pb) >= 2 and model.name in eiksrc.NAMED_PARAMS:
-            named = eiksrc.named_params_batch(model.name, pb)
-            static, arrays = eiksrc.prepare_batch(named, edt, ctx)
+            with span("kiwi.synth.eik_prepare"):
+                named = eiksrc.named_params_batch(model.name, pb)
+                static, arrays = eiksrc.prepare_batch(named, edt, ctx)
             # rigorous host bound on the time cells per coarse cell: a cell's
             # duration is 4x the mean |t - mean t| over it, at most
             # 4 * celldiag / minspeed (the solution is 1-Lipschitz in the
@@ -710,8 +712,9 @@ class Engine:
                 # members' measured need with no margin: a later member that
                 # outgrows it is what the overflow counter catches
                 members = {0, len(pb) - 1, int(np.argmax(named[0]["bord_radius"]))}
-                for i in sorted(members):
-                    hosts[i] = model.discretize(pb[i], edt, ctx)
+                with span("kiwi.synth.eik_calibrate"):
+                    for i in sorted(members):
+                        hosts[i] = self._host_discretize(model, pb[i], ctx)
                 ncell = int(static["NC"][0]) * int(static["NC"][1])
                 st = [h["stats"] for h in hosts.values()]
                 ntmax = min(max(s["max_nt"] for s in st), ntmax_hard)
@@ -731,12 +734,13 @@ class Engine:
                 rng = np.random.default_rng(len(self._eikonal_checked_keys))
                 idxs = set(hosts) | {0} | {
                     int(i) for i in rng.choice(len(pb), size=min(3, len(pb)), replace=False)}
-                tables = {k: to_host(v)[0] for k, v in cbatch.items()}
-                for i in sorted(idxs - set(hosts)):
-                    hosts[i] = model.discretize(pb[i], edt, ctx)
-                bad = [i for i in sorted(idxs)
-                       if not self._eikonal_crosscheck_ok(model, pb[i], tables, ctx, member=i,
-                                                          host=hosts[i])]
+                with span("kiwi.synth.eik_calibrate"):
+                    tables = {k: to_host(v)[0] for k, v in cbatch.items()}
+                    for i in sorted(idxs - set(hosts)):
+                        hosts[i] = self._host_discretize(model, pb[i], ctx)
+                    bad = [i for i in sorted(idxs)
+                           if not self._eikonal_crosscheck_ok(model, pb[i], tables, ctx,
+                                                              member=i, host=hosts[i])]
                 if bad and dev.type == "cuda":
                     # on the card a disagreement is a fault of the kernel or
                     # the discretizer: raise rather than move the search to
@@ -757,7 +761,7 @@ class Engine:
             # device tables are [ncell, ntmax] row-major: groups of ntmax
             return cbatch, moments, risetimes, (int(cbatch["north"].shape[1]),), int(ntmax)
 
-        tables = [model.discretize(p, edt, ctx) for p in pb]
+        tables = [self._host_discretize(model, p, ctx) for p in pb]
         cmax = -(-max(t["north"].shape[0] for t in tables) // 16) * 16
         out = {}
         for k in ("north", "east", "depth", "time", "m", "active"):
@@ -769,6 +773,12 @@ class Engine:
         moments, risetimes = self._post_factors(model, pb)
         # host FMM tables have ragged per-cell time runs: no uniform groups
         return out, moments, risetimes, (cmax,), 1
+
+    def _host_discretize(self, model, p, ctx):
+        """One row through the host pipeline (the FMM oracle), counted as
+        `eik.host_solves`."""
+        count("eik.host_solves")
+        return model.discretize(p, self.effective_dt, ctx)
 
     def _queue_overflow(self, ckey, ov):
         """Queue a device batch's overflow counter i32[B] for
@@ -824,7 +834,7 @@ class Engine:
         differently).  tables: the device tables as numpy arrays."""
 
         if host is None:
-            host = model.discretize(p0, self.effective_dt, ctx)
+            host = self._host_discretize(model, p0, ctx)
         s_host = _table_stats(host)
         s_dev = _table_stats(tables, member)
         scale = np.array([

@@ -302,12 +302,23 @@ def uniform_rec_major(rids, nrec):
     return k if (rids == np.repeat(np.arange(nrec), k)).all() else None
 
 
+def fold_half(risetime, dt):
+    """The live half width nint(0.5 * risetime / dt) of the post-synthesis
+    rise time's fold (nshifts = 1 + 2 * half, receiver.f90:866-886): the
+    samples by which the fold grows each side of a trace's data span, as
+    trace_multiply_add grows a span by the shifts it adds (the fold's
+    margin nshift_max, a plan's bound over its batch, is wider).
+    risetime: f32 tensor of any shape; dt a number or an f32 tensor beside
+    it (float32 arithmetic either way); int32 of risetime's shape."""
+    from .gf.trace import jnint
+
+    return jnint(0.5 * torch.as_tensor(risetime, dtype=F32) / dt)
+
+
 def fold_stf_weights(risetime, dt, nshift_max):
     """Boxcar-fold weights f32[..., 2*nshift_max+1] for post-synthesis rise
     times (receiver.f90:866-886); integer shifts are k - nshift_max.
     risetime: f32 tensor of any shape (a scalar gives [K], a batch [B, K])."""
-    from .gf.trace import jnint
-
     risetime = torch.as_tensor(risetime, dtype=F32)[..., None]
     dt = to_device(dt, risetime.device, F32)
     k = torch.arange(2 * nshift_max + 1, dtype=F32, device=risetime.device) - nshift_max
@@ -315,9 +326,8 @@ def fold_stf_weights(risetime, dt, nshift_max):
     lo = torch.maximum(-risetime / 2.0, ts - dt / 2.0)
     hi = torch.minimum(risetime / 2.0, ts + dt / 2.0)
     w = torch.clamp(hi - lo, min=0.0)
-    # live count per the reference: nshifts = 1 + 2*nint(0.5*risetime/dt)
-    nlive = 1 + 2 * jnint(0.5 * risetime / dt)
-    half = torch.div(nlive - 1, 2, rounding_mode="floor")
+    # live taps per the reference: |k| <= half
+    half = fold_half(risetime, dt)
     w = torch.where(torch.abs(k) <= half.to(F32), w, 0.0)
     total = torch.sum(w, dim=-1, keepdim=True)
     return torch.where(total > 0, w / torch.where(total > 0, total, 1.0),
@@ -605,8 +615,9 @@ def evaluate_misfits_floating_fused(
     if fold_nshift_max > 0:
         wf = fold_stf_weights(risetime0, st.dt, fold_nshift_max)
         v_rtw = apply_fold(v_rtw, wf)
-        syn_lo = syn_lo - fold_nshift_max
-        syn_hi = syn_hi + fold_nshift_max
+        half = torch.clamp(fold_half(risetime0, st.dt), max=fold_nshift_max)
+        syn_lo = syn_lo - half
+        syn_hi = syn_hi + half
 
     v_p = place_on_probe(v_rtw, syn_it0, st)  # [RV, T, PL]
     if any_taper or any_filter:
@@ -717,8 +728,12 @@ def _scaled_probes(ctx, syn_traces_b, syn_it0, syn_lo_b, syn_hi_b, st, moments,
     if risetimes is not None and fold_nshift_max > 0:
         wf = fold_stf_weights(risetimes, st.dt, fold_nshift_max)  # [B, K]
         syn_traces_b = apply_fold(syn_traces_b, wf[:, None, :])
-        syn_lo_b = syn_lo_b - fold_nshift_max
-        syn_hi_b = syn_hi_b + fold_nshift_max
+        # each model's span grows by the half width of its own live taps,
+        # not by the plan's margin (a row's misfit must not depend on the
+        # rise times of its batch)
+        half = torch.clamp(fold_half(risetimes, st.dt), max=fold_nshift_max)[:, None]
+        syn_lo_b = syn_lo_b - half
+        syn_hi_b = syn_hi_b + half
     syn = place_on_probe(syn_traces_b, syn_it0, st) * moments.to(F32)[:, None, None]
     return syn, syn_lo_b, syn_hi_b
 

@@ -32,7 +32,7 @@ from .. import eikonal as eik
 from .. import geometry as geom
 from ..euler import init_euler
 from ..plf import PLF
-from ..profiling import to_device
+from ..profiling import count, span, to_device
 from .base import SourceModel, register
 
 F32 = torch.float32
@@ -83,6 +83,17 @@ def _discretize_subfault_time(dursf, risetime, maxdt):
     it = np.arange(nt)
     w, toff = stf.integrate_and_centroid(stf.x[0] + dt * it, stf.x[0] + dt * (it + 1))
     return np.atleast_1d(w), np.atleast_1d(toff)
+
+
+def coarse_index(i, nc, nd):
+    """The coarse cell (of nc) that holds the centre of fine cell i (of nd)
+    along one axis: floor((i + 1/2) delta / cdelta) with delta = dims / nd
+    and cdelta = dims / nc, which is floor((2 i + 1) nc / (2 nd)), in
+    integers.  A centre on a coarse boundary -- the middle fine cell of an
+    odd nd under an even nc -- goes to the upper cell, as exact arithmetic
+    puts it, where a floating-point quotient would decide it by rounding.
+    Works on numpy arrays and torch tensors alike."""
+    return ((2 * i + 1) * nc) // (2 * nd)
 
 
 def discretize_eikonal_host(p, effective_dt, ctx: EikonalContext, m6_unit,
@@ -180,9 +191,8 @@ def discretize_eikonal_host(p, effective_dt, ctx: EikonalContext, m6_unit,
 
     valid = times >= 0.0
     vx, vy = np.nonzero(valid)
-    prc = pts_rc[vx, vy]
-    cix = np.clip(np.floor((prc[:, 0] - first[0]) / cdelta[0]).astype(int), 0, nx - 1)
-    ciy = np.clip(np.floor((prc[:, 1] - first[1]) / cdelta[1]).astype(int), 0, ny - 1)
+    cix = coarse_index(vx, nx, ndims[0])
+    ciy = coarse_index(vy, ny, ndims[1])
     np.add.at(counts, (cix, ciy), 1.0)
     tt = times[vx, vy]
     tmp = np.zeros((nx, ny))
@@ -727,12 +737,13 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
         # downsample fine -> coarse (psm_downsample_grid): the coarse cell of
         # a fine point is separable (cix depends on the x index only, ciy on
         # y), so the per-cell sums are two small 0/1 matmuls, float32 with
-        # TF32 off (the JAX package pins precision=HIGHEST)
-        first, cdelta = a["first"], a["cdelta"]
-        cix1 = torch.clamp(torch.floor((px - first[:, 0, None]) / cdelta[:, 0, None]).to(I32),
-                           0, ncx - 1)  # [B, nfx]
-        ciy1 = torch.clamp(torch.floor((py - first[:, 1, None]) / cdelta[:, 1, None]).to(I32),
-                           0, ncy - 1)  # [B, nfy]
+        # TF32 off (the JAX package pins precision=HIGHEST); the index in
+        # integers (coarse_index), cells past a source's own grid masked
+        nd, cdims = a["ndims"].long(), a["cdims"].long()
+        cix1 = torch.clamp(coarse_index(ax[None, :], cdims[:, 0, None], nd[:, 0, None]),
+                           max=ncx - 1)  # [B, nfx]
+        ciy1 = torch.clamp(coarse_index(ay[None, :], cdims[:, 1, None], nd[:, 1, None]),
+                           max=ncy - 1)  # [B, nfy]
         mx = (cix1[:, None, :] == torch.arange(ncx, device=dev)[None, :, None]).to(F32)
         my = (ciy1[:, None, :] == torch.arange(ncy, device=dev)[None, :, None]).to(F32)
         wmask = valid.to(F32)  # [B, nfx, nfy]
@@ -794,10 +805,13 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
         }
 
     def batched(a):
-        speeds = pre(a)
-        times = eik_sweep.sweep_solve_batch(speeds, a["delta"], a["first"], a["nukl"],
-                                            n_rounds=n_rounds)
-        return post(a, times)
+        count("eik.fine_cells", a["first"].shape[0] * nfx * nfy)
+        with span("kiwi.synth.eik_solve"):
+            speeds = pre(a)
+            times = eik_sweep.sweep_solve_batch(speeds, a["delta"], a["first"], a["nukl"],
+                                                n_rounds=n_rounds)
+        with span("kiwi.synth.eik_tables"):
+            return post(a, times)
 
     return batched
 

@@ -6,7 +6,10 @@ interpret mode.
 
 Tolerances: processed references and norms 1e-6 of the max (the FFT and
 the sums run in other orders); misfits 2e-5 of the max
-(tests/test_fused_scan.py's bar); selected shifts exactly.
+(tests/test_fused_scan.py's bar); selected shifts exactly.  Under a rise
+time's fold the JAX package gets the synthetics' spans narrowed by its
+margin less each model's live half width (`_jax_spans`), so that both
+integrate over the port's folded spans.
 """
 
 import jax
@@ -137,6 +140,16 @@ def test_fold_matches():
                jmf.apply_fold(jnp.asarray(vals), wj), 1e-6)
 
 
+def _jax_spans(lo, hi, risetimes, fold):
+    """The data spans to hand the JAX package so that its folded spans are
+    the port's: it grows every span by the fold's margin, the port by each
+    model's live half width min(nint(rise / 2 dt), margin), as kiwi grows
+    it (misfit.fold_half)."""
+    half = np.minimum(tmf.fold_half(torch.as_tensor(risetimes), ST["dt"]).numpy(), fold)
+    inward = (fold - half).astype(np.int32)[:, None]
+    return lo + inward, hi - inward
+
+
 def _batch_inputs(seed, B=16, NT=40):
     """Per-model synthetics [B, RC, NT] with per-model spans and factors."""
     rng = np.random.default_rng(seed)
@@ -161,8 +174,9 @@ def test_floating_batch_eval_matches(taper, fold, method):
     # eval window does by construction): the tail correction needs it
     eval_win = (ST["ps0"] + 10, ST["ps0"] + 115)
     jr = jmf.precompute_ref_context(jctx, method, jst, sr, taper, False)
+    jlo, jhi = _jax_spans(lo, hi, risetimes, fold)
     want = jmf.evaluate_misfits_floating_batch(
-        jctx, jnp.asarray(syn), syn_it0, jnp.asarray(lo), jnp.asarray(hi), method, jst, NREC,
+        jctx, jnp.asarray(syn), syn_it0, jnp.asarray(jlo), jnp.asarray(jhi), method, jst, NREC,
         jnp.asarray(moments), jnp.asarray(risetimes), fold_nshift_max=fold, rctx=jr,
         shiftrange=sr, any_taper=taper, eval_win=eval_win, interpret=True)
     tr = tmf.precompute_ref_context(tctx, method, tst, sr, taper, False)
@@ -194,7 +208,8 @@ def test_floating_eval_matches(taper, filt, fold, method):
                                     risetime=rt, fold_nshift_max=fold, shiftrange=sr, rctx=jr,
                                     any_taper=taper, any_filter=filt, eval_win=eval_win)
 
-    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, lo, hi, moments, risetimes)))
+    jlo, jhi = _jax_spans(lo, hi, risetimes, fold)
+    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, jlo, jhi, moments, risetimes)))
     tr = tmf.precompute_ref_context(tctx, method, tst, sr, taper, filt)
     got = tmf.evaluate_misfits(
         tctx, torch.as_tensor(syn), syn_it0, torch.as_tensor(lo), torch.as_tensor(hi), tst,
@@ -228,7 +243,8 @@ def test_time_domain_eval_matches(taper, filt, fold, amp, method):
                                     risetime=rt, fold_nshift_max=fold, rctx=jr,
                                     any_taper=taper, any_filter=filt, eval_win=eval_win)
 
-    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, lo, hi, moments, risetimes)))
+    jlo, jhi = _jax_spans(lo, hi, risetimes, fold)
+    want = jax.vmap(one)(*(jnp.asarray(a) for a in (syn, jlo, jhi, moments, risetimes)))
     tr = tmf.precompute_ref_context(tctx, method, tst, (0, 0), taper, filt)
     np.testing.assert_allclose(tr["norm"].numpy(), np.asarray(jr["norm"]), rtol=1e-5)
     got = tmf.evaluate_misfits(

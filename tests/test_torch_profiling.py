@@ -181,3 +181,89 @@ def test_to_host_and_to_device_count_every_wait():
     assert _waits(lambda: profiling.to_device(x, "cpu")) == {"syncs": 1, "h2d_pageable": 1}
     t = torch.ones(3)
     assert _waits(lambda: profiling.to_host(t, t)) == {"syncs": 1, "h2d_pageable": 0}
+
+
+# -- the eikonal discretization ---------------------------------------------------
+
+EIK = np.array([0.0, 0.0, 0.0, 400.0, 1e12, 30.0, 80.0, 164.0, 0.0, 0.0, 150.0, 20.0, -10.0,
+                0.9, 0.2], np.float32)
+EIK_RADII = np.array([120.0, 135.0, 150.0, 165.0], np.float32)
+EIK_SPANS = ["kiwi.synth.eik_prepare", "kiwi.synth.eik_solve", "kiwi.synth.eik_tables"]
+
+
+@pytest.fixture
+def eikonal():
+    """A fresh eikonal session (tests/test_torch_eikonal.py's constraints at
+    50 and 700 m) on the 45 x 8 store: its first grid compute calibrates."""
+    stf = np.array([0, 0, 0.3, 0.7, 1, 1, 1], dtype=np.float64)
+    s = elseis.build_ahfull_store(nx=45, nz=8, dt=0.1, dx=100.0, dz=100.0, firstx=100.0,
+                                  firstz=0.0, material=(2300.0, 3200.0, 1600.0), stf=stf)
+    eng = Engine(GFStore.from_numpy(s.dt, s.dx, s.dz, s.firstx, s.firstz, s.data, s.itmin,
+                                    s.nsamples), device="cpu")
+    olat, olon = 30.0, 70.0
+    recs = []
+    for i, d in enumerate([1500.0, 2300.0, 3100.0]):
+        la, lo = geo.ne_to_latlon(np.radians(olat), np.radians(olon), d, 0.3 * i)
+        recs.append(Receiver(np.degrees(float(la)), np.degrees(float(lo)), "ned"))
+    eng.set_receivers(recs)
+    eng.set_source_location(olat, olon)
+    eng.set_effective_dt(0.1)
+    eng.set_local_interpolation(True)
+    eng.set_source_constraints([[0, 0, 50.0], [0, 0, 700.0]], [[0, 0, -1.0], [0, 0, 1.0]])
+    eng.set_source_params("eikonal", EIK)
+    eng.set_floating_shiftrange(-0.3, 0.3)
+    eng.set_misfit_method("floating_l1norm")
+    eng.set_synthetic_reference()
+    return eng
+
+
+def _eik_grid():
+    return MisfitGrid(Source("eikonal", EIK), [("bord-radius", EIK_RADII)])
+
+
+def _counts(fn):
+    before = profiling.snapshot()
+    fn()
+    after = profiling.snapshot()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in ("eik.host_solves", "eik.fine_cells")}
+
+
+def test_eikonal_spans_nest_inside_discretize(eikonal, spans_on):
+    """The first compute: prepare, the calibration's host solves, the solve,
+    the tables, then the first-use cross-check; the second: no calibration."""
+    for want in (EIK_SPANS[:1] + ["kiwi.synth.eik_calibrate"] + EIK_SPANS[1:]
+                 + ["kiwi.synth.eik_calibrate"], EIK_SPANS):
+        events = _kiwi_events(lambda: _eik_grid().compute(eikonal))
+        (disc,) = [e for e in events if e.name == "kiwi.synth.discretize"]
+        assert disc.cpu_parent.name == "kiwi.engine.batch"
+        assert _children(events, disc) == want
+        assert all(e.cpu_parent is disc for e in events if e.name.startswith("kiwi.synth.eik"))
+
+
+def test_eikonal_counters(eikonal):
+    """eik.fine_cells: the batch times its padded fine grid; eik.host_solves:
+    the calibration's members (first, last, widest) and the cross-check's
+    (those, the first and three drawn with the first check's seed), then
+    none at the same shape."""
+    from kiwi_tpu_torch.sources import eikonal as eiksrc
+
+    static, _arrays = eiksrc.prepare_batch(
+        eiksrc.named_params_batch("eikonal", _eik_grid().params), 0.1,
+        eikonal.eikonal_context())
+    cells = len(EIK_RADII) * static["NF"][0] * static["NF"][1]
+    b = len(EIK_RADII)
+    members = {0, b - 1, int(np.argmax(EIK_RADII))}
+    checked = members | {int(i) for i in np.random.default_rng(1).choice(b, 3, replace=False)}
+    assert _counts(lambda: _eik_grid().compute(eikonal)) == {
+        "eik.host_solves": len(checked), "eik.fine_cells": cells}
+    assert _counts(lambda: _eik_grid().compute(eikonal)) == {
+        "eik.host_solves": 0, "eik.fine_cells": cells}
+    # a single row runs the host pipeline: one host solve, no device grid
+    assert _counts(lambda: eikonal.global_misfits_for_source_batch(EIK[None])) == {
+        "eik.host_solves": 1, "eik.fine_cells": 0}
+
+
+def test_eikonal_spans_off_cost_the_shared_noop(eikonal):
+    _eik_grid().compute(eikonal)
+    assert profiling.span("kiwi.synth.eik_solve") is profiling.span("kiwi.synth.eik_prepare")
+    assert _kiwi_events(lambda: _eik_grid().compute(eikonal)) == []

@@ -6,7 +6,12 @@ matplotlib, a card failure answered 500).
 Parity bar: result.json rows with the same receiver, component, itmin and
 length, their values within 1e-5 of each row's largest magnitude (float32
 synthesis summed in another order); /source3d.json's centroid tables the
-same length, within 1e-5 of each column's largest magnitude.
+same length, within 1e-5 of each column's largest magnitude.  The eikonal
+source's rows (a post-synthesis rise time) span fewer samples in the port,
+which grows a folded span by the fold's live half width where the JAX
+package adds its plan's margin: they are compared on the reference's
+samples, the port's trace extended as a trace is (zero before it, its last
+value after it).
 """
 
 import json
@@ -104,6 +109,13 @@ def _form(session, source, receivers="30.02 70.0 ned\n30.025 70.01 ne\n29.99 69.
             "calculate": "1", **source}
 
 
+def _on_axis(values, itmin, lo, hi):
+    """A trace (zero before itmin, its last value after its end) at the
+    absolute samples lo..hi."""
+    idx = np.arange(lo, hi + 1) - itmin
+    return np.where(idx < 0, 0.0, values[np.clip(idx, 0, len(values) - 1)])
+
+
 def _close(got, want, label):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, label
@@ -121,11 +133,20 @@ def test_parity_with_reference(port, reference, session, source):
     name = f"/file?session={session}&generation=1&name=result.json"
     got, want = (json.loads(_get(url, name)) for url in (base, reference))
     assert got["form"] == want["form"] and got["dt"] == want["dt"]
-    assert [(r["receiver"], r["component"], r["itmin"]) for r in got["traces"]] == [
-        (r["receiver"], r["component"], r["itmin"]) for r in want["traces"]]
+    assert [(r["receiver"], r["component"]) for r in got["traces"]] == [
+        (r["receiver"], r["component"]) for r in want["traces"]]
     assert len(got["traces"]) == 3 + 2 + 1
     for g, w in zip(got["traces"], want["traces"]):
-        _close(g["values"], w["values"], (g["receiver"], g["component"]))
+        gv, wv, gi, wi = g["values"], w["values"], g["itmin"], w["itmin"]
+        if source is EIKONAL:
+            # the rise time's fold grows the port's span by its live half
+            # width, the JAX package's by its plan's wider margin: the
+            # port's span inside the reference's, equal on it
+            assert wi <= gi and gi + len(gv) <= wi + len(wv)
+            gv = _on_axis(np.asarray(gv), gi, wi, wi + len(wv) - 1)
+        else:
+            assert gi == wi
+        _close(gv, wv, (g["receiver"], g["component"]))
     if source is MOMENT_TENSOR:
         return
     got, want = (json.loads(_get(url, f"/source3d.json?session={session}"))
