@@ -296,6 +296,7 @@ SOURCES = {
     "scan_sums": "kiwi_tpu_torch/csrc/scan_sums.cu",
     "eik_sweep": "kiwi_tpu_torch/csrc/eik_sweep.cu",
     "bilat_tables": "kiwi_tpu_torch/csrc/bilat_tables.cu",
+    "eik_prepare": "kiwi_tpu_torch/csrc/eik_prepare.cu",
 }
 # the device kernels of each wrapper, as torch.profiler names them
 KERNELS = {
@@ -305,6 +306,7 @@ KERNELS = {
     "scan_sums": ("scan_sums_kernel",),
     "eik_sweep": ("eik_wavefront_kernel", "eik_diagonal_kernel"),
     "bilat_tables": ("bilat_tables_kernel",),
+    "eik_prepare": ("eik_prepare_kernel",),
 }
 REPLACES = {
     "fused_scan": "kiwi_tpu/ops/float_scan.py:193",
@@ -316,6 +318,8 @@ REPLACES = {
     "eik_sweep": "kiwi_tpu/ops/eik_sweep.py:44",
     # no Pallas kernel: XLA fuses the JAX package's discretization
     "bilat_tables": "XLA fusion of kiwi_tpu/sources/bilat.py:73",
+    # no Pallas kernel: the JAX package prepares the eikonal batch in numpy
+    "eik_prepare": "host numpy of kiwi_tpu/sources/eikonal.py:462",
 }
 
 
@@ -987,14 +991,14 @@ def check_bilat(sweep_eng, packed, grid, grid_eng, results):
 def run_main_path(label, launch_names, run):
     """run() with every launch counter set to 0 just before and read just
     after; fails unless each of the path's kernels was launched."""
-    from kiwi_tpu_torch.ops import (bilat_tables as bl, eik_sweep as es, float_scan as fs,
-                                    synth_window as sw)
+    from kiwi_tpu_torch.ops import (bilat_tables as bl, eik_prepare as ep, eik_sweep as es,
+                                    float_scan as fs, synth_window as sw)
 
-    for counts in (fs.launches, sw.launches, es.launches, bl.launches):
+    for counts in (fs.launches, sw.launches, es.launches, bl.launches, ep.launches):
         for k in counts:
             counts[k] = 0
     out = run()
-    counts = {**fs.launches, **sw.launches, **es.launches, **bl.launches}
+    counts = {**fs.launches, **sw.launches, **es.launches, **bl.launches, **ep.launches}
     log(f"phase launches on the main path ({label}): {counts}")
     for name in launch_names:
         if counts[name] <= 0:
@@ -2510,19 +2514,67 @@ def profile_gradient(eng, reps=2):
         f"{device / max(fwd, 1e-12):.2f}x the forward's ({fwd:.4f} ms)")
 
 
-def profile_eikonal(eng, radii, reps=5):
-    """profile_calls over eikonal calls, then the host-side batch
-    preparation alone."""
+def profile_eikonal(eng, radii, results, reps=5):
+    """profile_calls over eikonal calls, one eik_prepare launch each; then
+    the batch preparation's kernel against its plain version
+    (sources/eikonal._prepare_batch_vec, cast as the discretizer casts) on
+    the same rows: sizes and the static shape equal, floats within one
+    float32 ulp (equal where the host's BLAS rounds as the kernel assumes,
+    csrc/eik_prepare.cu), timed as in 3 beside the plain version's host
+    time."""
+    import torch
+
+    from kiwi_tpu_torch.ops import eik_prepare as ep
     from kiwi_tpu_torch.sources import eikonal as eiksrc
 
     pb = eik_rows(radii)
+    before = ep.launches["eik_prepare"]
     profile_calls("eikonal", lambda: eng.global_misfits_for_source_batch(pb), reps)
+    per_call = (ep.launches["eik_prepare"] - before) / (reps + 1)  # and the warm call
+    if per_call != 1:
+        fail(f"expected one eik_prepare launch per eikonal call, saw {per_call}")
+    ctx, edt = eng.eikonal_context(), eng.effective_dt
+    named = eiksrc.named_params_batch("eikonal", pb)
+    rows = ep.rows_on(named, eng.device)
+    summary, got = ep.eik_prepare(rows, ctx, edt)
+    plain_summary, want = ep.eik_prepare(ep.rows_on(named, "cpu"), ctx, edt)
+    static = ep.static_from_summary(summary.cpu().numpy())
+    if static != ep.static_from_summary(plain_summary.numpy()):
+        fail(f"eik_prepare: static shape {static}, plain "
+             f"{ep.static_from_summary(plain_summary.numpy())}")
+    rec = results["eik_prepare"] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                    "library_ms": None}  # no PyTorch call prepares the batch
+    ndiff, nfar = {}, {}
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"eik_prepare {k}: {g.dtype} {tuple(g.shape)}, plain {w.dtype} "
+                 f"{tuple(w.shape)}")
+        ndiff[k] = int((g != w).sum())
+        if w.dtype == torch.float32:
+            ulp = torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()
+            nfar[k] = int(((g - w).abs() > ulp).sum())
+            rec["max_abs_err"] = max(rec["max_abs_err"], float((g - w).abs().max()))
+        else:
+            nfar[k] = ndiff[k]
+    log(f"  eik_prepare: B={pb.shape[0]}, static {static[0]}, ntmax_hard {static[1]}: entries "
+        f"that differ from the plain version {ndiff}, of them more than a float32 ulp or in "
+        f"an integer {sum(nfar.values())}")
+    if any(nfar.values()):
+        fail(f"eik_prepare differs from its plain version: {nfar}")
+    ms, others = device_ms(lambda: ep.eik_prepare(rows, ctx, edt), 20, KERNELS["eik_prepare"])
+    wrapper_ms = cuda_ms(lambda: ep.eik_prepare(rows, ctx, edt), 20)
     t0 = time.perf_counter()
     for _ in range(reps):
-        eiksrc.prepare_batch(eiksrc.named_params_batch("eikonal", pb), eng.effective_dt,
-                             eng.eikonal_context())
-    log(f"phase profile eikonal: host prepare_batch {(time.perf_counter() - t0) / reps * 1e3:.3f}"
-        f" ms per call")
+        eiksrc.prepare_batch(named, edt, ctx)
+    plain_ms = (time.perf_counter() - t0) / reps * 1e3
+    # each row read once (25 doubles), each output written once (33 floats,
+    # 5 ints); the operations are not counted
+    bound_ms, bound_by = bound((25 * 8 + 38 * 4) * pb.shape[0], 0)
+    log(f"  eik_prepare: kernel {ms:.4f} ms on the device (20 wrapper calls: {wrapper_ms:.4f} ms "
+        f"each by CUDA events; other device ops a call {others}), plain numpy "
+        f"{plain_ms:.3f} ms of host time, bound {bound_ms:.6f} ms ({bound_by})")
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def compare_gradient(grad, store):
@@ -2592,8 +2644,8 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(kiwi_tpu_torch.__file__))) != HERE:
         fail(f"kiwi_tpu_torch imported from {kiwi_tpu_torch.__file__}, not this checkout")
-    from kiwi_tpu_torch.ops import (bilat_tables as bl, build, eik_sweep as es, float_scan as fs,
-                                    synth_window as sw)
+    from kiwi_tpu_torch.ops import (bilat_tables as bl, build, eik_prepare as ep, eik_sweep as es,
+                                    float_scan as fs, synth_window as sw)
 
     if any(m == "jax" or m.startswith(("jax.", "kiwi_tpu.")) or m == "kiwi_tpu"
            for m in sys.modules):
@@ -2607,6 +2659,7 @@ def main():
     sw._library()
     es._library()
     bl._library()
+    ep._library()
     log(f"phase build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
@@ -2666,7 +2719,8 @@ def main():
          lambda: run_finite(finite["finite"], batches, "unfiltered")),
         ("finite_filtered", ("window_synth", "bilat_tables"),
          lambda: run_finite(finite["finite_filtered"], batches[:4], "filtered")),
-        ("eikonal", ("eik_sweep", "window_synth"), lambda: run_eikonal(eik, [radii] * 4)),
+        ("eikonal", ("eik_prepare", "eik_sweep", "window_synth"),
+         lambda: run_eikonal(eik, [radii] * 4)),
         ("grid", ("window_synth", "scan_sums", "bilat_tables"),
          lambda: run_grid(finite["finite"], inv)),
         ("lm", ("window_synth", "bilat_tables"), lambda: run_lm(lm, lm_start, inv)),
@@ -2764,7 +2818,7 @@ def main():
         profile_calls(f"point {label}", lambda: eng.sweep_global_misfits(BASE, 5, packed))
     pb = finite_rows(batches[0])
     profile_calls("finite", lambda: finite["finite"].global_misfits_for_source_batch(pb))
-    profile_eikonal(eik, radii)
+    profile_eikonal(eik, radii, results)
     grid = inv["grid"]
     profile_calls("grid", lambda: grid.compute(finite["finite"]), reps=2)
 

@@ -27,9 +27,11 @@ Three forwards, as in the JAX package:
   synthesize in plain torch instead (plan["formulation"] = "plain", chosen
   from the plan's config alone, as kiwi_tpu's choose_formulation), then
   evaluate the same way.
-The eikonal sources discretize a whole batch on the device (prepare_batch
-on the host, then sources/eikonal.discretize_device_batch with the
-fast-sweeping kernel ops/eik_sweep.py), cross-checked once per table shape
+The eikonal sources discretize a whole batch on the device (the batch's
+preparation, ops/eik_prepare.py: one kernel launch on the card, the numpy
+prepare_batch on the CPU and for zero-radius ruptures; then
+sources/eikonal.discretize_device_batch with the fast-sweeping kernel
+ops/eik_sweep.py), cross-checked once per table shape
 against the host FMM pipeline (a disagreement raises on the card and falls
 back to the host pipeline on the CPU), or on the host (eikonal_device =
 False, and single sources), and then take the batch forward.
@@ -61,7 +63,7 @@ from . import misfit as mf
 from . import synth
 from .gf.store import GFStore
 from .gf.trace import dataspan, fnint
-from .ops import synth_window
+from .ops import eik_prepare, synth_window
 from .ops.float_scan import MAX_T
 from .plf import PLF
 from .profiling import count, span, to_device, to_host
@@ -691,14 +693,24 @@ class Engine:
         if self.eikonal_device and len(pb) >= 2 and model.name in eiksrc.NAMED_PARAMS:
             with span("kiwi.synth.eik_prepare"):
                 named = eiksrc.named_params_batch(model.name, pb)
-                static, arrays = eiksrc.prepare_batch(named, edt, ctx)
-            # rigorous host bound on the time cells per coarse cell: a cell's
-            # duration is 4x the mean |t - mean t| over it, at most
-            # 4 * celldiag / minspeed (the solution is 1-Lipschitz in the
-            # d/speed metric; the solver's dead-zone floor is 0.5 * minspeed)
-            diag = np.hypot(arrays["cdelta"][:, 0], arrays["cdelta"][:, 1])
-            ntmax_hard = int(np.floor(4.0 * diag / np.maximum(arrays["minspeed"], 1.0)
-                                      / edt).max()) + 2
+                if (named[0]["bord_radius"] != 0.0).all():
+                    # one launch on the card (on the CPU the plain version),
+                    # then one wait for the numbers that fix the shapes and
+                    # the errors; the arrays stay on the device
+                    summary, arrays = eik_prepare.eik_prepare(
+                        eik_prepare.rows_on(named, dev), ctx, edt)
+                    summary = to_host(summary)[0]
+                else:
+                    # a degenerate zero-radius rupture: the host's per-source loop
+                    count("eik.host_prepares")
+                    _static, arrays = eiksrc.prepare_batch(named, edt, ctx)
+                    summary = eik_prepare.summary_of(arrays, edt)
+                # ntmax_hard, the rigorous host bound on the time cells per
+                # coarse cell: a cell's duration is 4x the mean |t - mean t|
+                # over it, at most 4 * celldiag / minspeed (the solution is
+                # 1-Lipschitz in the d/speed metric; the solver's dead-zone
+                # floor is 0.5 * minspeed)
+                static, ntmax_hard = eik_prepare.static_from_summary(summary)
 
             self._check_eik_overflow()
             ckey = (model.name, static["NF"], static["NC"], float(edt), ctx.content_key())

@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v",
 )
+# flags one source adds: the eikonal preparation contracts no product into
+# an FMA but those it writes out, so that it rounds as the host's numpy
+SOURCE_FLAGS = {"eik_prepare.cu": ("-fmad=false",)}
 
 
 def find_nvcc():
@@ -58,14 +61,15 @@ def build_all(*source_names):
     libs, jobs = [], []
     for name in source_names:
         src = CSRC_DIR / name
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"{src.stem}-{digest}.so"
         libs.append(lib)
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, lib, tmp, cmd, proc))
     failed = []

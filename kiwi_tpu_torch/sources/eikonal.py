@@ -819,11 +819,14 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
 def discretize_device_batch(static, arrays, effective_dt, ctx, nt_cell_max,
                             n_rounds=2, ncell_budget=None, device="cuda"):
     """prepare_batch's (static, arrays) -> the centroid tables of the whole
-    batch on `device` (make_device_discretizer's outputs)."""
+    batch on `device` (make_device_discretizer's outputs).  Host arrays are
+    copied to `device`; tensors (ops/eik_prepare's, already there in the
+    discretizer's dtypes) are taken as they are."""
     fn = make_device_discretizer(static, effective_dt, ctx, nt_cell_max, n_rounds,
                                  ncell_budget=ncell_budget, device=device)
     adev = {
-        k: to_device(np.asarray(v), device, I32 if v.dtype.kind == "i" else F32)
+        k: v if torch.is_tensor(v) else to_device(np.asarray(v), device,
+                                                  I32 if v.dtype.kind == "i" else F32)
         for k, v in arrays.items()
     }
     return fn(adev)

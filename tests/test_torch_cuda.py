@@ -10,6 +10,10 @@ partial sums), so the comparison is relative to the output's max at 1e-5,
 the repo's on-card bar.  The eikonal sweep kernel and the bilateral tables
 kernel round as their plain versions do on the card (no contraction, the
 same operations in the same order), so they must equal them bit for bit.
+The eikonal preparation kernel rounds as the host's numpy does on x86-64
+(its BLAS's FMAs written out): its sizes must equal the plain version's,
+its float32 arrays lie within one ulp of them (a host whose BLAS rounds a
+product otherwise moves a float64 by an ulp).
 """
 
 import numpy as np
@@ -17,9 +21,11 @@ import pytest
 import torch
 
 import bilat_cases
+import eik_prepare_cases
 import span_cases
-from kiwi_tpu_torch.ops import bilat_tables, eik_sweep, float_scan, synth_window
+from kiwi_tpu_torch.ops import bilat_tables, eik_prepare, eik_sweep, float_scan, synth_window
 from kiwi_tpu_torch.sources import bilat
+from kiwi_tpu_torch.sources import eikonal as eiksrc
 
 pytestmark = pytest.mark.cuda
 
@@ -451,6 +457,75 @@ def test_bilat_gradient_takes_the_plain_chain(cuda_dev):
     assert (leaf.grad[:, [0, 3, 5, 6, 7, 9, 10, 12]] != 0).all()
 
 
+def _f32_ulps_apart(got, want):
+    """Per element, whether two float32 tensors differ by more than one ulp
+    of the plain version's value."""
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"))) - want.abs()
+    return (got - want).abs() > ulp
+
+
+@pytest.mark.parametrize("name", sorted(eik_prepare_cases.CASES))
+def test_eik_prepare_matches_the_plain_version(cuda_dev, name):
+    """The eikonal batch preparation on the card: one launch whose arrays are
+    the plain version's (sources/eikonal._prepare_batch_vec, cast as the
+    discretizer casts them): sizes, the static shape and the hard bound on
+    time cells equal, floats at most one float32 ulp apart; a refused batch
+    raises the host's ValueError with its message, its bad rows flagged
+    (eik_prepare_cases.py)."""
+    model, rows, ctx, error = eik_prepare_cases.case(name)
+    named = eiksrc.named_params_batch(model, rows)
+    before = eik_prepare.launches["eik_prepare"]
+    summary, got = eik_prepare.eik_prepare(eik_prepare.rows_on(named, cuda_dev), ctx,
+                                           eik_prepare_cases.EDT)
+    torch.cuda.synchronize()
+    assert eik_prepare.launches["eik_prepare"] == before + 1
+    summary = summary.cpu().numpy()
+    status = got.pop("status").cpu().numpy()
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            eik_prepare.static_from_summary(summary)
+        with pytest.raises(ValueError, match=error):
+            eiksrc.prepare_batch(named, eik_prepare_cases.EDT, ctx)
+        both = eik_prepare.EMPTY | eik_prepare.NUKL_OUTSIDE  # at 600 m, nucleation too
+        want_status = {"empty": {5: both, 9: eik_prepare.NUKL_OUTSIDE},
+                       "nukl_outside": {7: eik_prepare.NUKL_OUTSIDE}}[name]
+        assert {i: int(v) for i, v in enumerate(status) if v} == want_status
+        return
+    plain_summary, plain = eik_prepare.eik_prepare(eik_prepare.rows_on(named, "cpu"), ctx,
+                                                   eik_prepare_cases.EDT)
+    static, _arrays = eik_prepare_cases.host_prepare(name)
+    assert eik_prepare.static_from_summary(summary) == eik_prepare.static_from_summary(
+        plain_summary.numpy())
+    assert eik_prepare.static_from_summary(summary)[0] == static
+    assert not status.any()
+    plain.pop("status")
+    assert set(got) == set(plain)
+    for k, w in plain.items():
+        g = got[k].cpu()
+        assert g.shape == w.shape and g.dtype == w.dtype and got[k].is_contiguous(), k
+        if w.dtype == torch.int32:
+            assert torch.equal(g, w), (k, int((g != w).sum()))
+        else:
+            assert not _f32_ulps_apart(g, w).any(), (k, int(_f32_ulps_apart(g, w).sum()))
+
+
+def test_eik_prepare_on_the_engine_path(cuda_dev):
+    """On a CUDA engine a device discretization at a calibrated shape makes
+    one launch, waits once for the summary and copies none of the prepared
+    arrays: the CPU session's counts (tests/test_torch_eik_prepare.py); its
+    global misfits are the CPU engine's at 1e-5 of the largest."""
+    eng = eik_prepare_cases.session(cuda_dev)
+    batch = eik_prepare_cases.session_batch()
+    eng.global_misfits_for_source_batch(batch)  # calibrates and cross-checks
+    before = eik_prepare.launches["eik_prepare"]
+    waits = eik_prepare_cases.waits(lambda: eng._discretize_batch(batch))
+    assert eik_prepare.launches["eik_prepare"] == before + 1
+    assert waits == eik_prepare_cases.SESSION_WAITS
+    got = eng.global_misfits_for_source_batch(batch).cpu().numpy()
+    want = eik_prepare_cases.session("cpu").global_misfits_for_source_batch(batch).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
     """A device discretization that disagrees with the host FMM oracle on
     members i > 0 raises on a CUDA engine (the CPU engine falls back to the
@@ -458,7 +533,6 @@ def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
     from kiwi_tpu_torch import geo
     from kiwi_tpu_torch.engine import Engine, Receiver
     from kiwi_tpu_torch.gf import elseis
-    from kiwi_tpu_torch.sources import eikonal as eiksrc
 
     store = elseis.build_ahfull_store(
         nx=45, nz=8, dt=0.1, dx=100.0, dz=100.0, firstx=100.0, firstz=0.0,
