@@ -857,7 +857,7 @@ def check_eikonal_kernel(eng, radii, results):
     steps = (nx + ny - 1) * 4 * n_rounds
     log(f"  eik_sweep shapes: B={B} nx={nx} ny={ny} n_rounds={n_rounds} "
         f"({steps} dependent diagonal steps per solve)")
-    for key, (ntmax, budget, hard) in eng._eik_calib.items():
+    for key, (ntmax, budget, hard) in eng.batch_discretizer().calib.items():
         log(f"  eikonal tables: fine grid {key[1]}, coarse grid {key[2]}, time cells per "
             f"coarse cell {ntmax} (bound {hard}), cell budget {budget}")
     got = es.sweep_solve_batch(speed, delta, first, ip, n_rounds=n_rounds)
@@ -1074,7 +1074,7 @@ def run_eikonal(eng, batches):
     log(f"phase eikonal: {len(batches)} batches x {batches[0].size} radii in {seconds:.4f} s "
         f"({seconds / len(batches) * 1e3:.3f} ms per batch): {mps:.0f} models/s; "
         f"best radius {best:.2f} m (true 250)")
-    if not eng.eikonal_device:
+    if not eng.batch_discretizer().on_device:
         fail("eikonal: the device discretizer fell back to the host pipeline")
     if abs(best - 250.0) > 10.0:
         fail(f"eikonal: best radius {best} not within 10 m of 250")
@@ -2812,7 +2812,8 @@ def main():
     g_gpu = eik.global_misfits_for_source_batch(pb).cpu().numpy()
     rel = float(np.abs(g_gpu - g_cpu).max()) / max(float(np.abs(g_cpu).max()), 1e-30)
     log(f"phase card-vs-cpu eikonal: 8 radii, max diff {rel:.3e} of the largest |g|")
-    if not (rel <= TOL and cpu.eikonal_device and eik.eikonal_device):
+    if not (rel <= TOL and cpu.batch_discretizer().on_device
+            and eik.batch_discretizer().on_device):
         fail(f"eikonal: card and CPU port disagree ({rel:.3e} > {TOL}) or fell back to the host")
     for label, eng in engines.items():
         profile_calls(f"point {label}", lambda: eng.sweep_global_misfits(BASE, 5, packed))

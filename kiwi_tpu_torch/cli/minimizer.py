@@ -21,9 +21,10 @@ import sys
 
 import numpy as np
 
-from ..engine import Engine, Receiver, to_host
+from ..engine import Engine, Receiver
 from ..gf.trace import fnint
 from ..io import writeseismogram
+from ..profiling import to_host
 
 def _fmt(x):
     """List-directed-output style float formatting."""
@@ -278,9 +279,7 @@ class MinimizerServer:
 
     def do_output_source_model(self, args):
         fnbase = args.strip()
-        cbatch, _m, _r, _s, _g = self.engine._discretize_batch(
-            self.engine.source_params[None, :]
-        )
+        cbatch = self.engine.discretize(self.engine.source_params[None, :]).tables
         keys = ("active", "north", "east", "depth", "time", "m")
         act, north, east, depth, time, m = (a[0] for a in to_host(*(cbatch[k] for k in keys)))
         with open(f"{fnbase}-dsm.table", "w") as f:

@@ -27,14 +27,12 @@ Three forwards, as in the JAX package:
   synthesize in plain torch instead (plan["formulation"] = "plain", chosen
   from the plan's config alone, as kiwi_tpu's choose_formulation), then
   evaluate the same way.
-The eikonal sources discretize a whole batch on the device (the batch's
-preparation, ops/eik_prepare.py: one kernel launch on the card, the numpy
-prepare_batch on the CPU and for zero-radius ruptures; then
-sources/eikonal.discretize_device_batch with the fast-sweeping kernel
-ops/eik_sweep.py), cross-checked once per table shape
-against the host FMM pipeline (a disagreement raises on the card and falls
-back to the host pipeline on the CPU), or on the host (eikonal_device =
-False, and single sources), and then take the batch forward.
+Every batch is discretized through `discretize`: on the device by the
+source model's discretize, or, for a model with a batch_discretizer (the
+eikonal ones), by the engine's instance of it (batch_discretizer(): on the
+device with the fast-sweeping kernel, cross-checked once per table shape
+against the host FMM pipeline, or on the host; sources/eikonal.
+BatchDiscretizer), and then takes the batch forward.
 
 Gradients (global_misfits_and_grad, misfit_jacobian and the descent of
 invert.gradient on them) differentiate the plain formulation
@@ -53,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import typing
 
 import numpy as np
 import torch
@@ -63,10 +62,10 @@ from . import misfit as mf
 from . import synth
 from .gf.store import GFStore
 from .gf.trace import dataspan, fnint
-from .ops import eik_prepare, synth_window
+from .ops import synth_window
 from .ops.float_scan import MAX_T
 from .plf import PLF
-from .profiling import count, span, to_device, to_host
+from .profiling import span, to_device, to_host
 from .sources import eikonal as eiksrc
 from .sources import get_source_model
 
@@ -75,19 +74,16 @@ F32 = torch.float32
 LOG = logging.getLogger("kiwi_tpu_torch")
 
 
-def _table_stats(tables, member=None):
-    """Moment-weighted centroid statistics of an eikonal table (or of batch
-    member `member` of batched ones): mean north, east, depth and time, and
-    the total moment weight."""
-    north, east, depth, time, m, active = (
-        np.asarray(tables[k] if member is None else tables[k][member], np.float64)
-        for k in ("north", "east", "depth", "time", "m", "active"))
-    w = np.abs(m).sum(axis=-1) * active
-    tot = w.sum()
-    if tot <= 0:
-        return np.zeros(5)
-    return np.array([(w * north).sum() / tot, (w * east).sum() / tot,
-                     (w * depth).sum() / tot, (w * time).sum() / tot, tot])
+class Discretized(typing.NamedTuple):
+    """A batch's centroid tables [B, C] on the engine's device, its moments
+    and rise times [B] (host numpy), its grid shape, and its group size:
+    runs of that many consecutive centroids share their position."""
+
+    tables: dict
+    moments: np.ndarray
+    risetimes: np.ndarray
+    shape: tuple
+    group_size: int
 
 
 @dataclasses.dataclass
@@ -135,19 +131,8 @@ class Engine:
         self._plan = None
         self._plan_key = None
         self._sweep_memo = {}
-        # batched eikonal discretization on the device (fast sweeping)
-        # instead of the serial host FMM.  The first batch of each table
-        # shape cross-checks several members against the host pipeline; if
-        # any disagrees, a CPU engine falls back to it with a warning and a
-        # CUDA engine raises
-        self.eikonal_device = True
-        self._eikonal_checked_keys = set()
-        # device-table calibration: (model, NF, NC, dt, ctx) -> (ntmax, ncell
-        # budget, hard ntmax bound), from the host tables of the first
-        # batch's most demanding members; guarded by the discretizer's
-        # overflow counter, read once its copy has landed (no sync)
-        self._eik_calib = {}
-        self._eik_pending = []  # (calibration key, overflow max, event or None)
+        # model name -> its batch_discretizer's instance, kept for the session
+        self._batch_discretizers = {}
         # optional floor on the pow2 probe length.  Spectral-filter weights
         # are evaluated at k/(pl*dt), so filter parity with another
         # implementation (the C++ oracle) needs a common probe grid.  It is
@@ -661,200 +646,29 @@ class Engine:
             return model.param_stats(pb, self.effective_dt, self.eikonal_context())
         return model.param_stats(pb, self.effective_dt)
 
-    def _discretize_batch(self, params_batch):
-        """(centroid tables [B, C] on the engine's device, moments [B],
-        risetimes [B], grid shape, group size: runs of that many
-        consecutive centroids share their position)."""
+    def batch_discretizer(self, name=None):
+        """The engine's instance of source model `name`'s batch_discretizer
+        (the current source type's by default), made at first use; None for
+        a model without one."""
+        model = get_source_model(self.source_type if name is None else name)
+        if model.batch_discretizer is not None and model.name not in self._batch_discretizers:
+            self._batch_discretizers[model.name] = model.batch_discretizer()
+        return self._batch_discretizers.get(model.name)
+
+    def discretize(self, params_batch):
+        """The Discretized batch of the current source type's parameter rows
+        [B, nparams]."""
         model = get_source_model(self.source_type)
         pb = np.atleast_2d(np.asarray(params_batch, dtype=np.float32))
-        if model.host_discretize:
-            return self._discretize_batch_host(model, pb)
-        shape = self._batch_shape(model, pb)
-        cbatch = model.discretize(to_device(pb, self.device), self.effective_dt, shape)
-        moments, risetimes = self._post_factors(model, pb)
-        return cbatch, moments, risetimes, shape, int(shape[-1])
-
-    def _discretize_batch_host(self, model, pb):
-        """Discretization of the host-discretized (eikonal) models.
-
-        With eikonal_device and a real batch (B >= 2), the whole batch is
-        discretized on the device (sources/eikonal.discretize_device_batch:
-        the fast-sweeping kernel, the downsample and the time cells), with
-        table budgets calibrated from the host FMM tables of the batch's
-        most demanding members and a first-use cross-check per table shape:
-        on disagreement a CPU engine falls back to the host pipeline with a
-        warning (the JAX package's semantics) and a CUDA engine raises, so a
-        fault on the card never turns into a slower host search.  Otherwise
-        every source runs the host pipeline and the tables are padded to a
-        multiple of 16 rows with active = False."""
-        ctx = self.eikonal_context()
-        dev = self.device
-        edt = self.effective_dt
-        if self.eikonal_device and len(pb) >= 2 and model.name in eiksrc.NAMED_PARAMS:
-            with span("kiwi.synth.eik_prepare"):
-                named = eiksrc.named_params_batch(model.name, pb)
-                if (named[0]["bord_radius"] != 0.0).all():
-                    # one launch on the card (on the CPU the plain version),
-                    # then one wait for the numbers that fix the shapes and
-                    # the errors; the arrays stay on the device
-                    summary, arrays = eik_prepare.eik_prepare(
-                        eik_prepare.rows_on(named, dev), ctx, edt)
-                    summary = to_host(summary)[0]
-                else:
-                    # a degenerate zero-radius rupture: the host's per-source loop
-                    count("eik.host_prepares")
-                    _static, arrays = eiksrc.prepare_batch(named, edt, ctx)
-                    summary = eik_prepare.summary_of(arrays, edt)
-                # ntmax_hard, the rigorous host bound on the time cells per
-                # coarse cell: a cell's duration is 4x the mean |t - mean t|
-                # over it, at most 4 * celldiag / minspeed (the solution is
-                # 1-Lipschitz in the d/speed metric; the solver's dead-zone
-                # floor is 0.5 * minspeed)
-                static, ntmax_hard = eik_prepare.static_from_summary(summary)
-
-            self._check_eik_overflow()
-            ckey = (model.name, static["NF"], static["NC"], float(edt), ctx.content_key())
-            calib = self._eik_calib.get(ckey)
-            hosts = {}
-            if calib is None:
-                # calibrate the table budgets from the host oracle on the
-                # batch's first, last and widest members: the hard bound pads
-                # ~4x in time cells and the bounding box ~1.6x in cells, and
-                # the window kernel pays for every padded row.  ntmax is the
-                # members' measured need with no margin: a later member that
-                # outgrows it is what the overflow counter catches
-                members = {0, len(pb) - 1, int(np.argmax(named[0]["bord_radius"]))}
-                with span("kiwi.synth.eik_calibrate"):
-                    for i in sorted(members):
-                        hosts[i] = self._host_discretize(model, pb[i], ctx)
-                ncell = int(static["NC"][0]) * int(static["NC"][1])
-                st = [h["stats"] for h in hosts.values()]
-                ntmax = min(max(s["max_nt"] for s in st), ntmax_hard)
-                budget = -(-int(np.ceil(max(s["n_cells"] for s in st) * 1.2)) // 8) * 8
-                calib = (max(ntmax, 1), budget if budget < ncell else None, ntmax_hard)
-                self._eik_calib[ckey] = calib
-            ntmax, budget, _hard = calib
-            cbatch = dict(eiksrc.discretize_device_batch(
-                static, arrays, edt, ctx, ntmax, ncell_budget=budget, device=dev))
-            self._queue_overflow(ckey, cbatch.pop("overflow"))
-            # validate >= 3 members (the calibration members, 0, and random
-            # ones) once per (model, table length, dt): a discretizer fault
-            # that spares member 0 (a batch-indexing bug) must not pass
-            key = (model.name, int(cbatch["north"].shape[1]), float(edt))
-            if key not in self._eikonal_checked_keys:
-                self._eikonal_checked_keys.add(key)
-                rng = np.random.default_rng(len(self._eikonal_checked_keys))
-                idxs = set(hosts) | {0} | {
-                    int(i) for i in rng.choice(len(pb), size=min(3, len(pb)), replace=False)}
-                with span("kiwi.synth.eik_calibrate"):
-                    tables = {k: to_host(v)[0] for k, v in cbatch.items()}
-                    for i in sorted(idxs - set(hosts)):
-                        hosts[i] = self._host_discretize(model, pb[i], ctx)
-                    bad = [i for i in sorted(idxs)
-                           if not self._eikonal_crosscheck_ok(model, pb[i], tables, ctx,
-                                                              member=i, host=hosts[i])]
-                if bad and dev.type == "cuda":
-                    # on the card a disagreement is a fault of the kernel or
-                    # the discretizer: raise rather than move the search to
-                    # the host pipeline behind a warning
-                    raise RuntimeError(
-                        "device eikonal discretization disagrees with the host FMM oracle "
-                        "(mean north, east, depth, time, total moment weight): " + "; ".join(
-                            f"member {i}: device {_table_stats(tables, i)}, host "
-                            f"{_table_stats(hosts[i])}" for i in bad))
-                if bad:
-                    LOG.warning(
-                        "device eikonal discretization disagrees with the host FMM oracle "
-                        "beyond tolerance for batch member(s) %s; falling back to the host "
-                        "pipeline (engine.eikonal_device = False)", bad)
-                    self.eikonal_device = False
-                    return self._discretize_batch_host(model, pb)
-            moments, risetimes = self._post_factors(model, pb)
-            # device tables are [ncell, ntmax] row-major: groups of ntmax
-            return cbatch, moments, risetimes, (int(cbatch["north"].shape[1]),), int(ntmax)
-
-        tables = [self._host_discretize(model, p, ctx) for p in pb]
-        cmax = -(-max(t["north"].shape[0] for t in tables) // 16) * 16
-        out = {}
-        for k in ("north", "east", "depth", "time", "m", "active"):
-            first = tables[0][k]
-            arr = np.zeros((len(tables), cmax) + first.shape[1:], dtype=first.dtype)
-            for i, t in enumerate(tables):
-                arr[i, : t[k].shape[0]] = t[k]
-            out[k] = to_device(arr, dev)
-        moments, risetimes = self._post_factors(model, pb)
-        # host FMM tables have ragged per-cell time runs: no uniform groups
-        return out, moments, risetimes, (cmax,), 1
-
-    def _host_discretize(self, model, p, ctx):
-        """One row through the host pipeline (the FMM oracle), counted as
-        `eik.host_solves`."""
-        count("eik.host_solves")
-        return model.discretize(p, self.effective_dt, ctx)
-
-    def _queue_overflow(self, ckey, ov):
-        """Queue a device batch's overflow counter i32[B] for
-        _check_eik_overflow without a sync: on the card its max is copied
-        into pinned host memory behind an event; on the CPU it is ready."""
-        ovmax = ov.amax()
-        if ovmax.device.type != "cuda":
-            self._eik_pending.append((ckey, ovmax, None))
-            return
-        host = torch.empty((), dtype=ovmax.dtype, pin_memory=True)
-        host.copy_(ovmax, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self._eik_pending.append((ckey, host, event))
-
-    def _check_eik_overflow(self, force=False):
-        """Deferred, sync-free guard on the calibrated device-eikonal table
-        budgets.  On overflow the calibration for that shape widens to the
-        rigorous hard bound; the overflowed batch itself shipped with
-        clipped time cells / dropped cells (a discretization-level
-        approximation on a few cells, warned about here).  A counter is read
-        only once its copy has landed (event.query()); unresolved ones stay
-        queued, the oldest read anyway past 8 pending, all with force."""
-        still = []
-        for i, (ckey, ov, event) in enumerate(self._eik_pending):
-            must = force or len(self._eik_pending) - i > 8
-            if event is not None and not event.query():
-                if not must:
-                    still.append((ckey, ov, event))
-                    continue
-                event.synchronize()
-                count("syncs")
-            self._drain_eik_overflow(ckey, ov)
-        self._eik_pending = still
-
-    def _drain_eik_overflow(self, ckey, ov):
-        ov = int(ov)
-        if ov > 0:
-            calib = self._eik_calib.get(ckey)
-            hard = calib[2] if calib else ov
-            self._eik_calib[ckey] = (hard, None, hard)
-            LOG.warning(
-                "device eikonal table calibration overflowed by %d rows/cells on the "
-                "previous batch (its misfits carry a small extra discretization error); "
-                "widening the table budget to the rigorous bound for %s", ov, ckey)
-
-    def _eikonal_crosscheck_ok(self, model, p0, tables, ctx, rtol=2e-3, member=0, host=None):
-        """First-use validation of the device discretizer against the host
-        FMM pipeline: the moment-weighted centroid statistics (mean north,
-        east, depth, time and the total moment weight) of batch member
-        `member`'s table must agree within rtol of their scales (the tables
-        cannot be compared cell by cell: the pipelines discretize time
-        differently).  tables: the device tables as numpy arrays."""
-
-        if host is None:
-            host = self._host_discretize(model, p0, ctx)
-        s_host = _table_stats(host)
-        s_dev = _table_stats(tables, member)
-        scale = np.array([
-            max(abs(s_host[0]), 100.0), max(abs(s_host[1]), 100.0),
-            max(abs(s_host[2]), 100.0), max(abs(s_host[3]), self.effective_dt),
-            max(abs(s_host[4]), 1e-30),
-        ])
-        return bool(np.all(np.abs(s_dev - s_host) <= rtol * scale))
+        disc = self.batch_discretizer()
+        if disc is not None:
+            tables, shape, gsize = disc(model, pb, self.effective_dt, self.eikonal_context(),
+                                        self.device)
+        else:
+            shape = self._batch_shape(model, pb)
+            tables = model.discretize(to_device(pb, self.device), self.effective_dt, shape)
+            gsize = int(shape[-1])
+        return Discretized(tables, *self._post_factors(model, pb), shape, gsize)
 
     def _plan_bounds(self, risetime_max, stats):
         """(extent, depth range, time range, rise time) of a plan covering
@@ -890,14 +704,15 @@ class Engine:
 
     def _current_tables(self):
         """The plan of the current source and its centroid tables (one row),
-        discretized first: a host-discretized model's grid shape is its
-        table length."""
+        discretized first: an eikonal model's grid shape is its table
+        length."""
         model = get_source_model(self.source_type)
         pb = self.source_params[None, :]
         stats = self._param_stats(model, pb)
-        cbatch, moments, risetimes, shape, gsize = self._discretize_batch(pb)
-        plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats, gsize=gsize)
-        return plan, cbatch, moments, risetimes
+        d = self.discretize(pb)
+        plan = self._ensure_plan(float(d.risetimes.max(initial=0.0)), d.shape, stats,
+                                 gsize=d.group_size)
+        return plan, d.tables, d.moments, d.risetimes
 
     # -- queries --------------------------------------------------------------
 
@@ -909,7 +724,7 @@ class Engine:
         else the matmul forward; all others the window kernel.  Batches
         whose per-source transients exceed `memory_budget` run in balanced
         chunks (the last may be shorter; rows give the same result either
-        way).  Host-discretized (eikonal) batches are discretized whole
+        way).  Eikonal batches (a batch_discretizer's) are discretized whole
         first, planned from the host param_stats, and the chunks take row
         slices of their centroid tables."""
         with span("kiwi.engine.batch"):
@@ -927,7 +742,7 @@ class Engine:
         model = get_source_model(self.source_type)
         rows, moments, risetimes, shape, gsize, stats = self._batch_rows(model, pb)
         plan = self._ensure_plan(float(risetimes.max(initial=0.0)), shape, stats, gsize=gsize)
-        if shared and not model.host_discretize:
+        if shared:
             fwd = self._batch_forward(model, pb, plan, risetimes)
         else:
             fwd = plan["forward_batch"]
@@ -936,18 +751,18 @@ class Engine:
     def _batch_rows(self, model, pb):
         """(rows(i, j): the centroid tables of rows i..j-1 on the device,
         moments, risetimes, grid shape, group size, param_stats) of the
-        batch pb.  Host-discretized (eikonal) batches are discretized whole
-        and rows slices their tables; device-discretized rows are
+        batch pb.  Eikonal batches (a batch_discretizer's) are discretized
+        whole and rows slices their tables; device-discretized rows are
         discretized when asked for."""
-        if model.host_discretize:
+        if model.batch_discretizer is not None:
             with span("kiwi.engine.prep"):
                 stats = self._param_stats(model, pb)
             with span("kiwi.synth.discretize"):
-                tables, moments, risetimes, shape, gsize = self._discretize_batch(pb)
+                d = self.discretize(pb)
 
             def rows(i, j):
-                return {k: v[i:j] for k, v in tables.items()}
-            return rows, moments, risetimes, shape, gsize, stats
+                return {k: v[i:j] for k, v in d.tables.items()}
+            return rows, d.moments, d.risetimes, d.shape, d.group_size, stats
         with span("kiwi.engine.prep"):
             shape = self._batch_shape(model, pb)
             moments, risetimes = self._post_factors(model, pb)
@@ -1030,7 +845,7 @@ class Engine:
         # a covering value range.  effective_dt is in the key because
         # set_effective_dt (alone among the setters) does not invalidate
         # the plan
-        if model.host_discretize:  # no device-side tiling for host tables
+        if model.batch_discretizer is not None:  # no device-side tiling for its tables
             return self._sweep_by_batches(model, base, col, values)
         mkey = (self.source_type, col, n, self.effective_dt, base.tobytes())
         hit = self._sweep_memo.get(mkey)
@@ -1216,7 +1031,7 @@ class Engine:
         the JAX package's errors for the cases it cannot differentiate."""
         if not self._refs:
             raise RuntimeError("no reference seismograms set")
-        if model.host_discretize or model.post_factors_batch is None:
+        if model.batch_discretizer is not None or model.post_factors_batch is None:
             raise NotImplementedError(
                 f"autodiff gradients need a device discretizer and vectorized post "
                 f"factors (source type {self.source_type!r})")

@@ -7,8 +7,8 @@ coordinates, the fine grid's size and spacing, the nucleation test, the
 least rupture speed over the grid's depths and the coarse grid's size and
 spacing, in one launch of csrc/eik_prepare.cu.  The kernel replaces no TPU
 kernel: the JAX package prepares the batch in host numpy, as the port did
-(sources/eikonal._prepare_batch_vec, the plain version here), 45-65 ms of a
-384-row call while the card waited.  See the source's header.
+(_prepare_batch_vec, the plain version, at the end of this file), 45-65 ms
+of a 384-row call while the card waited.  See the source's header.
 
 In: the rows f64[B, 25] of `pack_rows` (named_params_batch's ten named
 columns, rotmat, m6), which `rows_on` sends to the card in one pinned,
@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import geometry as geom
 from ..profiling import to_device
 from . import build, refuse_grad
 
@@ -94,15 +95,15 @@ def rows_on(named, device):
     return rows.pin_memory().to(device, non_blocking=True)
 
 
-def context_array(ctx):
+def context_array(constraints, layer_depths, layer_vs):
     """The session's context as f64[6 ncons + ndepth + nvs + 2 * 180] and its
     sizes (ncons, ndepth, nvs): each constraint's point and normal, the layer
     depths and speeds, the cos and sin of the 180-gon's angles (computed as
     _prepare_batch_vec computes them)."""
     cons = [np.concatenate([np.asarray(p, np.float64), np.asarray(n, np.float64)])
-            for p, n in ctx.constraints]
-    depths = np.asarray(ctx.layer_depths, np.float64).ravel()
-    vs = np.asarray(ctx.layer_vs, np.float64).ravel()
+            for p, n in constraints]
+    depths = np.asarray(layer_depths, np.float64).ravel()
+    vs = np.asarray(layer_vs, np.float64).ravel()
     i = np.arange(1, NPOINTS + 1)
     ang = i * 2.0 * np.pi / NPOINTS
     arr = np.concatenate([np.concatenate(cons) if cons else np.zeros(0), depths, vs,
@@ -112,11 +113,8 @@ def context_array(ctx):
 
 @functools.lru_cache(maxsize=16)
 def _context_on(device, key):
-    from ..sources.eikonal import EikonalContext
-
-    cons, depths, vs = key
-    arr, sizes = context_array(EikonalContext([(np.asarray(p), np.asarray(n)) for p, n in cons],
-                                              np.asarray(depths), np.asarray(vs)))
+    """context_array of a context's content_key() on `device`, sent once."""
+    arr, sizes = context_array(*key)
     return to_device(arr, device, F64), sizes
 
 
@@ -174,8 +172,6 @@ def eik_prepare(rows, ctx, effective_dt):
     dev = rows.device
     B = rows.shape[0]
     if dev.type == "cpu":
-        from ..sources.eikonal import _prepare_batch_vec
-
         _static, arrays = _prepare_batch_vec(*unpack_rows(rows.numpy()), effective_dt, ctx)
         out = {k: torch.as_tensor(v, dtype=I32 if v.dtype.kind == "i" else F32)
                for k, v in arrays.items()}
@@ -200,3 +196,97 @@ def eik_prepare(rows, ctx, effective_dt):
         raise build.KernelError(f"kiwi_eik_prepare launch failed: CUDA error {err}")
     launches["eik_prepare"] += 1
     return summary, _fields(fout, F32_FIELDS, B) | _fields(iout, I32_FIELDS, B)
+
+
+def _prepare_batch_vec(pv, m6s, rotmats, effective_dt, ctx):
+    """Batched prepare: same quantities as sources/eikonal.
+    _prepare_batch_loop, computed with batch-axis numpy.  Bit-compatible:
+    every per-source float64 operation runs in the same order as the loop.
+    ctx: the session's EikonalContext (constraints, layer depths and
+    speeds)."""
+    b = m6s.shape[0]
+    centers = np.stack([pv["north"], pv["east"], pv["depth"]], axis=-1)
+
+    # boundary polygons: transformed unit circles (circle_to_polygon),
+    # batched; then the constraint clips (Sutherland-Hodgman) in one
+    # batched pass per half-space
+    shift_rc = np.stack(
+        [pv["bord_shift_x"], pv["bord_shift_y"], np.zeros(b)], axis=-1)
+    # np.matmul with the scalar loop's per-item shapes: bit-identical to
+    # the loop (einsum picks different kernels and drifts by 1 ulp, which
+    # could flip a grid-dim ceil against discretize_eikonal_host)
+    ccenters = np.matmul(rotmats, shift_rc[..., None])[..., 0] + centers
+    transforms = -rotmats * pv["bord_radius"][:, None, None]
+    i = np.arange(1, NPOINTS + 1)
+    ang = i * 2.0 * np.pi / NPOINTS
+    unit = np.stack([np.cos(ang), np.sin(ang), np.zeros(NPOINTS)], axis=0)
+    polys = (np.matmul(transforms, unit).transpose(0, 2, 1)
+             + ccenters[:, None, :])
+    counts = np.full(b, NPOINTS, dtype=np.int64)
+    for hp, hn in ctx.constraints:
+        polys, counts = geom.trim_polygon_batch(polys, counts, hp, hn)
+        if (counts == 0).any():
+            raise ValueError("Empty rupture area")
+
+    polys_rc = np.matmul(polys - centers[:, None, :], rotmats)
+    min_rc = polys_rc.min(axis=1)  # pad rows repeat vertex 0: box-safe
+    max_rc = polys_rc.max(axis=1)
+
+    # nucleation point must lie inside (psm_initial_point_intolerant_rc)
+    nukls3 = np.stack(
+        [pv["nukl_shift_x"], pv["nukl_shift_y"], np.zeros(b)], axis=-1)
+    nukl_ned = np.matmul(rotmats, nukls3[..., None])[..., 0] + centers
+    bad = np.hypot(nukls3[:, 0], nukls3[:, 1]) > pv["bord_radius"]
+    for hp, hn in ctx.constraints:
+        bad |= (np.asarray(hn) @ (np.asarray(hp)[None, :] - nukl_ned).T) < 0.0
+    if bad.any():
+        raise ValueError(
+            "position of nucleation point is outside of rupture region")
+
+    deltagrid = min(100.0 * effective_dt / 2.0, 4000.0)
+    dims = (max_rc - min_rc)[:, :2]
+    ndims = np.maximum(np.ceil(dims / deltagrid).astype(int), 1)
+    deltas = np.where(ndims > 0, dims / ndims, 1.0)
+    deltas = np.where(deltas == 0.0, 1.0, deltas)
+
+    # min rupture speed over each grid's depth range: vs is a step
+    # function of depth, so the min over [zlo, zhi] is the min of the
+    # layer intervals the range touches (same candidates the loop probes)
+    corners_x = np.stack([min_rc[:, 0], min_rc[:, 0],
+                          max_rc[:, 0], max_rc[:, 0]], axis=-1)
+    corners_y = np.stack([min_rc[:, 1], max_rc[:, 1],
+                          min_rc[:, 1], max_rc[:, 1]], axis=-1)
+    zs = (centers[:, 2:3] + rotmats[:, 2, 0:1] * corners_x
+          + rotmats[:, 2, 1:2] * corners_y)  # [B, 4]
+    zlo, zhi = zs.min(axis=1), zs.max(axis=1)
+    depths = np.asarray(ctx.layer_depths, np.float64)
+    vs = np.asarray(ctx.layer_vs, np.float64)
+    nv = vs.shape[0]
+    k0 = np.minimum(np.searchsorted(depths, zlo, side="left"), nv - 1)
+    k1 = np.minimum(np.searchsorted(depths, zhi, side="left"), nv - 1)
+    kk = np.arange(nv)[None, :]
+    sel = (kk >= k0[:, None]) & (kk <= k1[:, None])
+    vmins = np.where(sel, vs[None, :], np.inf).min(axis=1)
+    minspeeds = vmins * pv["rel_vrup"]
+
+    maxd = 0.5 * effective_dt * minspeeds
+    nxy = np.where(
+        dims != 0.0,
+        np.maximum(np.floor(dims / maxd[:, None]).astype(int) + 1, 2),
+        1,
+    )
+    cdims = nxy
+    cdeltas = np.where(nxy > 0, dims / nxy, 1.0)
+
+    static = {
+        "NF": (pad8(ndims[:, 0].max()), pad8(ndims[:, 1].max())),
+        "NC": (int(cdims[:, 0].max()), int(cdims[:, 1].max())),
+    }
+    arrays = dict(
+        first=min_rc[:, :2], delta=deltas, ndims=ndims,
+        nukl=nukls3[:, :2], center=centers, rotmat=rotmats, m6=m6s,
+        ccenter=ccenters, radius=pv["bord_radius"].copy(), cdims=cdims,
+        cdelta=cdeltas, minspeed=minspeeds, time0=pv["time"].copy(),
+        relv=pv["rel_vrup"].copy(),
+    )
+    return static, arrays

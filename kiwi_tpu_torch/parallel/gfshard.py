@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import synth
-from ..engine import to_host
+from ..profiling import to_host
 from ..sources import get_source_model
 from .sharding import check_device, source_block
 
@@ -157,12 +157,12 @@ class GFShardedPlan:
         b = pb.shape[0]
         # whole-batch decisions first, alike on every rank: a batch one rank
         # refuses is refused by all of them before the gather
-        if not model.host_discretize:
+        if model.batch_discretizer is None:
             eng._batch_shape(model, pb)
         _m, risetimes = eng._post_factors(model, pb)
         rt_max = float(risetimes.max(initial=0.0))
         if self._batch_exceeds_built_stats(pb, rt_max):
-            self._check_coverage_precise(eng._discretize_batch(pb)[0], rt_max)
+            self._check_coverage_precise(eng.discretize(pb).tables, rt_max)
         shared = b >= 2 and model.shared_kin_check is not None and model.shared_kin_check(pb)
 
         mesh, sa = self.mesh, self.source_axis

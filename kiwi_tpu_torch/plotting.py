@@ -8,7 +8,7 @@ station maps, rupture-front snapshots, and a plain-HTML run report
 Port of kiwi_tpu/plotting.py.  matplotlib is imported by the figure
 functions only (`_mpl`), so this module imports on a host without it;
 `matplotlib_missing()` says whether the figures can be drawn.  Device
-tensors come to the host (engine.to_host) before numpy touches them."""
+tensors come to the host (profiling.to_host) before numpy touches them."""
 
 from __future__ import annotations
 
@@ -151,9 +151,9 @@ def plot_rupture_front(engine, path):
     """Centroid positions colored by rupture onset time (the reference's
     rupture plots from psm info files)."""
     plt = _mpl()
-    from .engine import to_host
+    from .profiling import to_host
 
-    cbatch, _m, _r, _s, _g = engine._discretize_batch(engine.source_params[None, :])
+    cbatch = engine.discretize(engine.source_params[None, :]).tables
     act, n, e, d, t = to_host(*(cbatch[k][0] for k in ("active", "north", "east", "depth",
                                                        "time")))
     act = act.astype(bool)
@@ -279,7 +279,7 @@ def plot_misfogram(engine, path, tmin=-10.0, tmax=10.0, nt=41):
 
     it = get_source_model(engine.source_type).names.index("time")
     batch[:, it] = base[it] + shifts
-    from .engine import to_host
+    from .profiling import to_host
 
     m, nrm, _fs = engine.misfits_for_source_batch(batch)
     m, nrm = (x.astype(np.float64) for x in to_host(m, nrm))

@@ -7,17 +7,8 @@ import numpy as np
 import torch
 
 from ..ops import bilat_tables
-from .base import (
-    _cols_const,
-    DEG2RAD_F32,
-    SourceModel,
-    init_euler,
-    m3_to_m6,
-    mt_rot_from_sdr,
-    plf4_cell_weights,
-    register,
-    trapezoid_stf_points,
-)
+from ..ops.bilat_tables import discretize_reference
+from .base import _cols_const, SourceModel, register
 
 BIG = np.float32(np.finfo(np.float32).max)
 
@@ -82,68 +73,6 @@ def discretize(params, effective_dt, shape):
     if params.requires_grad:
         return discretize_reference(params, shape)
     return bilat_tables.bilat_tables(params.to(torch.float32), shape)
-
-
-def discretize_reference(params, shape):
-    """discretize in plain torch, differentiable: ~280 small device ops."""
-    nx, ny, nt = shape
-    p = params.to(torch.float32)
-    bsz = p.shape[0]
-    time, north, east, depth = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
-    strike, dip, slip_rake, rup_rake = p[:, 5], p[:, 6], p[:, 7], p[:, 8]
-    length_a, length_b, width, rupvel, risetime = (p[:, i] for i in range(9, 14))
-    length = length_a + length_b
-
-    rotmat_rup = init_euler(dip * DEG2RAD_F32, strike * DEG2RAD_F32,
-                            -rup_rake * DEG2RAD_F32)  # [B, 3, 3]
-    _, m_rot = mt_rot_from_sdr(strike, dip, slip_rake)
-
-    # spatial grid centered in the fault plane, rupture direction x
-    # (source_bilat.f90:377-396); 0-based ix: (2*ix - nx + 1)/(2 nx) * length
-    ix = torch.arange(nx, dtype=torch.float32, device=p.device)
-    iy = torch.arange(ny, dtype=torch.float32, device=p.device)
-    gx = (2.0 * ix - nx + 1.0) / (2.0 * nx) * length[:, None]  # [B, nx]
-    gy = (2.0 * iy - ny + 1.0) / (2.0 * ny) * width[:, None]  # [B, ny]
-    gxm = gx[:, :, None].expand(bsz, nx, ny)
-    gym = gy[:, None, :].expand(bsz, nx, ny)
-    c3 = lambda a: a[:, None, None]  # noqa: E731  [B] -> [B, 1, 1]
-    tshift = (
-        torch.abs(c3(length) / 2.0 - c3(length_b) + gxm) / c3(rupvel)
-        + c3(time)
-        - c3(torch.maximum(length_a, length_b)) / 2.0 / c3(rupvel)
-    )
-    # the fault-plane points are (gx, gy, 0): the rotation is two exact f32
-    # product terms per axis (the JAX package pins this einsum to HIGHEST;
-    # centroid POSITIONS must stay exact)
-    rot = [rotmat_rup[:, i, 0, None, None] * gxm + rotmat_rup[:, i, 1, None, None] * gym
-           for i in range(3)]
-    gn = rot[0] + c3(north)
-    ge = rot[1] + c3(east)
-    gd = rot[2] + c3(depth)
-
-    # STF cells (source_bilat.f90:403-427)
-    dursf = length / nx / rupvel
-    xs, ys = trapezoid_stf_points(dursf, risetime)
-    durfull = dursf + risetime
-    dt_cell = (durfull / nt)[:, None]
-    it = torch.arange(nt, dtype=torch.float32, device=p.device)
-    wt, toff = plf4_cell_weights(xs, ys, xs[:, :1] + dt_cell * it,
-                                 xs[:, :1] + dt_cell * (it + 1))  # [B, nt]
-
-    m6 = m3_to_m6(m_rot) / (nx * ny)  # unit moment spread over subfaults
-
-    # assemble [B, nx*ny*nt] in the reference's (ip, it) nesting order
-    def flat(a):
-        return a[..., None].expand(bsz, nx, ny, nt).reshape(bsz, -1)
-
-    return {
-        "north": flat(gn),
-        "east": flat(ge),
-        "depth": flat(gd),
-        "time": flat(tshift) + toff.repeat(1, nx * ny),
-        "m": m6[:, None, :] * wt.repeat(1, nx * ny)[:, :, None],
-        "active": torch.ones(bsz, nx * ny * nt, dtype=torch.bool, device=p.device),
-    }
 
 
 def post_factors_batch(pb):

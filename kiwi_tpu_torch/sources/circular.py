@@ -6,18 +6,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.bilat_tables import (DEG2RAD_F32, init_euler, m3_to_m6, mt_rot_from_sdr,
+                                plf4_cell_weights, trapezoid_stf_points)
 from ..synth import grad_safe_norm
-from .base import (
-    _cols_const,
-    DEG2RAD_F32,
-    SourceModel,
-    init_euler,
-    m3_to_m6,
-    mt_rot_from_sdr,
-    plf4_cell_weights,
-    register,
-    trapezoid_stf_points,
-)
+from .base import _cols_const, SourceModel, register
 
 BIG = np.float32(np.finfo(np.float32).max)
 

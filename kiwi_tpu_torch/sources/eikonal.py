@@ -15,15 +15,19 @@ Two pipelines, as in the JAX package:
 * host (numpy + the FMM oracle, `discretize_eikonal_host`), one source at a
   time, exactly mirroring the reference dataflow; the engine pads the
   per-source tables to a common length with `active` masks;
-* device (`discretize_device_batch`): the host prepares what fixes shapes
-  (`prepare_batch`), then the whole batch is discretized in torch on the
-  engine's device, the solve through ops/eik_sweep.sweep_solve_batch (the
-  CUDA kernel on the card, its plain version on the CPU).
+* device (`discretize_device_batch`): what fixes shapes is prepared first
+  (ops/eik_prepare.py; `prepare_batch` on the host), then the whole batch
+  is discretized in torch on the engine's device, the solve through
+  ops/eik_sweep.sweep_solve_batch (the CUDA kernel on the card, its plain
+  version on the CPU).
+`BatchDiscretizer` chooses between them for the engine (the models'
+`batch_discretizer`), calibrates the device tables and cross-checks them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -31,10 +35,13 @@ import torch
 from .. import eikonal as eik
 from .. import geometry as geom
 from ..euler import init_euler
+from ..ops import eik_prepare
+from ..ops.eik_prepare import _prepare_batch_vec
 from ..plf import PLF
-from ..profiling import count, span, to_device
+from ..profiling import count, span, to_device, to_host
 from .base import SourceModel, register
 
+LOG = logging.getLogger("kiwi_tpu_torch")
 F32 = torch.float32
 I32 = torch.int32
 BIG = np.float32(np.finfo(np.float32).max)
@@ -242,9 +249,224 @@ def discretize_eikonal_host(p, effective_dt, ctx: EikonalContext, m6_unit,
         "m": np.asarray(ms, np.float32).reshape(n, 6),
         "active": np.ones(n, bool),
         # table-geometry stats (the device pipeline calibrates its static
-        # ncell/nt budgets from these, engine._discretize_batch_host)
+        # ncell/nt budgets from these, BatchDiscretizer)
         "stats": {"n_cells": n_cells, "max_nt": max_nt},
     }
+
+
+# -- the engine's batch discretization --------------------------------------
+
+
+def _table_stats(tables, member=None):
+    """Moment-weighted centroid statistics of an eikonal table (or of batch
+    member `member` of batched ones): mean north, east, depth and time, and
+    the total moment weight."""
+    north, east, depth, time, m, active = (
+        np.asarray(tables[k] if member is None else tables[k][member], np.float64)
+        for k in ("north", "east", "depth", "time", "m", "active"))
+    w = np.abs(m).sum(axis=-1) * active
+    tot = w.sum()
+    if tot <= 0:
+        return np.zeros(5)
+    return np.array([(w * north).sum() / tot, (w * east).sum() / tot,
+                     (w * depth).sum() / tot, (w * time).sum() / tot, tot])
+
+
+def _host_discretize(model, p, effective_dt, ctx):
+    """One row through the host pipeline (the FMM oracle), counted as
+    `eik.host_solves`."""
+    count("eik.host_solves")
+    return model.discretize(p, effective_dt, ctx)
+
+
+def _crosscheck_ok(host, tables, member, effective_dt, rtol=2e-3):
+    """First-use validation of the device discretizer against the host
+    FMM pipeline: the moment-weighted centroid statistics (mean north,
+    east, depth, time and the total moment weight) of batch member
+    `member`'s table must agree within rtol of their scales with the host
+    table's (the tables cannot be compared cell by cell: the pipelines
+    discretize time differently).  tables: the device tables as numpy
+    arrays."""
+    s_host = _table_stats(host)
+    s_dev = _table_stats(tables, member)
+    scale = np.array([
+        max(abs(s_host[0]), 100.0), max(abs(s_host[1]), 100.0),
+        max(abs(s_host[2]), 100.0), max(abs(s_host[3]), effective_dt),
+        max(abs(s_host[4]), 1e-30),
+    ])
+    return bool(np.all(np.abs(s_dev - s_host) <= rtol * scale))
+
+
+class BatchDiscretizer:
+    """The eikonal models' batch discretization and the state it keeps
+    across calls (an engine holds one a model).
+
+    With `on_device` and a real batch (B >= 2), the whole batch is
+    discretized on the device: the preparation (ops/eik_prepare.py, one
+    launch on the card, its plain version on the CPU; the host's
+    per-source loop for zero-radius ruptures), then discretize_device_batch
+    (the fast-sweeping kernel, the downsample and the time cells), with
+    table budgets calibrated from the host FMM tables of the batch's most
+    demanding members and a first-use cross-check per table shape: on
+    disagreement a CPU engine falls back to the host pipeline with a
+    warning (the JAX package's semantics) and a CUDA engine raises, so a
+    fault on the card never turns into a slower host search.  Otherwise
+    every source runs the host pipeline and the tables are padded to a
+    multiple of 16 rows with active = False."""
+
+    def __init__(self):
+        self.on_device = True
+        # (model, table length, dt) of the device tables cross-checked
+        self.checked_keys = set()
+        # device-table calibration: (model, NF, NC, dt, ctx) -> (ntmax, ncell
+        # budget, hard ntmax bound), from the host tables of the first
+        # batch's most demanding members; guarded by the discretizer's
+        # overflow counter, read once its copy has landed (no sync)
+        self.calib = {}
+        self.pending = []  # (calibration key, overflow max, event or None)
+
+    def __call__(self, model, pb, effective_dt, ctx, device):
+        """(centroid tables [B, C] on `device`, grid shape, group size: runs
+        of that many consecutive centroids share their position) of the
+        rows pb f32[B, nparams] under the session's EikonalContext."""
+        edt = effective_dt
+        if self.on_device and len(pb) >= 2:
+            with span("kiwi.synth.eik_prepare"):
+                named = named_params_batch(model.name, pb)
+                if (named[0]["bord_radius"] != 0.0).all():
+                    # one launch on the card (on the CPU the plain version),
+                    # then one wait for the numbers that fix the shapes and
+                    # the errors; the arrays stay on the device
+                    summary, arrays = eik_prepare.eik_prepare(
+                        eik_prepare.rows_on(named, device), ctx, edt)
+                    summary = to_host(summary)[0]
+                else:
+                    # a degenerate zero-radius rupture: the host's per-source loop
+                    count("eik.host_prepares")
+                    _static, arrays = prepare_batch(named, edt, ctx)
+                    summary = eik_prepare.summary_of(arrays, edt)
+                # ntmax_hard, the rigorous host bound on the time cells per
+                # coarse cell: a cell's duration is 4x the mean |t - mean t|
+                # over it, at most 4 * celldiag / minspeed (the solution is
+                # 1-Lipschitz in the d/speed metric; the solver's dead-zone
+                # floor is 0.5 * minspeed)
+                static, ntmax_hard = eik_prepare.static_from_summary(summary)
+
+            self.check_overflow()
+            ckey = (model.name, static["NF"], static["NC"], float(edt), ctx.content_key())
+            calib = self.calib.get(ckey)
+            hosts = {}
+            if calib is None:
+                # calibrate the table budgets from the host oracle on the
+                # batch's first, last and widest members: the hard bound pads
+                # ~4x in time cells and the bounding box ~1.6x in cells, and
+                # the window kernel pays for every padded row.  ntmax is the
+                # members' measured need with no margin: a later member that
+                # outgrows it is what the overflow counter catches
+                members = {0, len(pb) - 1, int(np.argmax(named[0]["bord_radius"]))}
+                with span("kiwi.synth.eik_calibrate"):
+                    for i in sorted(members):
+                        hosts[i] = _host_discretize(model, pb[i], edt, ctx)
+                ncell = int(static["NC"][0]) * int(static["NC"][1])
+                st = [h["stats"] for h in hosts.values()]
+                ntmax = min(max(s["max_nt"] for s in st), ntmax_hard)
+                budget = -(-int(np.ceil(max(s["n_cells"] for s in st) * 1.2)) // 8) * 8
+                calib = (max(ntmax, 1), budget if budget < ncell else None, ntmax_hard)
+                self.calib[ckey] = calib
+            ntmax, budget, _hard = calib
+            cbatch = dict(discretize_device_batch(
+                static, arrays, edt, ctx, ntmax, ncell_budget=budget, device=device))
+            self._queue_overflow(ckey, cbatch.pop("overflow"))
+            # validate >= 3 members (the calibration members, 0, and random
+            # ones) once per (model, table length, dt): a discretizer fault
+            # that spares member 0 (a batch-indexing bug) must not pass
+            key = (model.name, int(cbatch["north"].shape[1]), float(edt))
+            if key not in self.checked_keys:
+                self.checked_keys.add(key)
+                rng = np.random.default_rng(len(self.checked_keys))
+                idxs = set(hosts) | {0} | {
+                    int(i) for i in rng.choice(len(pb), size=min(3, len(pb)), replace=False)}
+                with span("kiwi.synth.eik_calibrate"):
+                    tables = {k: to_host(v)[0] for k, v in cbatch.items()}
+                    for i in sorted(idxs - set(hosts)):
+                        hosts[i] = _host_discretize(model, pb[i], edt, ctx)
+                    bad = [i for i in sorted(idxs)
+                           if not _crosscheck_ok(hosts[i], tables, i, edt)]
+                if bad and device.type == "cuda":
+                    # on the card a disagreement is a fault of the kernel or
+                    # the discretizer: raise rather than move the search to
+                    # the host pipeline behind a warning
+                    raise RuntimeError(
+                        "device eikonal discretization disagrees with the host FMM oracle "
+                        "(mean north, east, depth, time, total moment weight): " + "; ".join(
+                            f"member {i}: device {_table_stats(tables, i)}, host "
+                            f"{_table_stats(hosts[i])}" for i in bad))
+                if bad:
+                    LOG.warning(
+                        "device eikonal discretization disagrees with the host FMM oracle "
+                        "beyond tolerance for batch member(s) %s; falling back to the host "
+                        "pipeline (BatchDiscretizer.on_device = False)", bad)
+                    self.on_device = False
+                    return self(model, pb, edt, ctx, device)
+            # device tables are [ncell, ntmax] row-major: groups of ntmax
+            return cbatch, (int(cbatch["north"].shape[1]),), int(ntmax)
+
+        tables = [_host_discretize(model, p, edt, ctx) for p in pb]
+        cmax = -(-max(t["north"].shape[0] for t in tables) // 16) * 16
+        out = {}
+        for k in ("north", "east", "depth", "time", "m", "active"):
+            first = tables[0][k]
+            arr = np.zeros((len(tables), cmax) + first.shape[1:], dtype=first.dtype)
+            for i, t in enumerate(tables):
+                arr[i, : t[k].shape[0]] = t[k]
+            out[k] = to_device(arr, device)
+        # host FMM tables have ragged per-cell time runs: no uniform groups
+        return out, (cmax,), 1
+
+    def _queue_overflow(self, ckey, ov):
+        """Queue a device batch's overflow counter i32[B] for check_overflow
+        without a sync: on the card its max is copied into pinned host
+        memory behind an event; on the CPU it is ready."""
+        ovmax = ov.amax()
+        if ovmax.device.type != "cuda":
+            self.pending.append((ckey, ovmax, None))
+            return
+        host = torch.empty((), dtype=ovmax.dtype, pin_memory=True)
+        host.copy_(ovmax, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self.pending.append((ckey, host, event))
+
+    def check_overflow(self, force=False):
+        """Deferred, sync-free guard on the calibrated device-eikonal table
+        budgets.  On overflow the calibration for that shape widens to the
+        rigorous hard bound; the overflowed batch itself shipped with
+        clipped time cells / dropped cells (a discretization-level
+        approximation on a few cells, warned about here).  A counter is read
+        only once its copy has landed (event.query()); unresolved ones stay
+        queued, the oldest read anyway past 8 pending, all with force."""
+        still = []
+        for i, (ckey, ov, event) in enumerate(self.pending):
+            must = force or len(self.pending) - i > 8
+            if event is not None and not event.query():
+                if not must:
+                    still.append((ckey, ov, event))
+                    continue
+                event.synchronize()
+                count("syncs")
+            self._drain_overflow(ckey, ov)
+        self.pending = still
+
+    def _drain_overflow(self, ckey, ov):
+        ov = int(ov)
+        if ov > 0:
+            calib = self.calib.get(ckey)
+            hard = calib[2] if calib else ov
+            self.calib[ckey] = (hard, None, hard)
+            LOG.warning(
+                "device eikonal table calibration overflowed by %d rows/cells on the "
+                "previous batch (its misfits carry a small extra discretization error); "
+                "widening the table budget to the rigorous bound for %s", ov, ckey)
 
 
 # -- model: eikonal ---------------------------------------------------------
@@ -354,7 +576,7 @@ MODEL_EIKONAL = register(
         shape_param_idx=None,
         post_factors_batch=lambda pb: (pb[:, 4], pb[:, 14]),
         shared_kin_check=lambda pb: False,
-        host_discretize=True,
+        batch_discretizer=BatchDiscretizer,
         param_stats=_eik_param_stats,
         param_stats_ctx=True,
     )
@@ -426,7 +648,7 @@ MODEL_MT_EIKONAL = register(
         shape_param_idx=None,
         post_factors_batch=lambda pb: (pb[:, 4], pb[:, 19]),
         shared_kin_check=lambda pb: False,
-        host_discretize=True,
+        batch_discretizer=BatchDiscretizer,
         param_stats=_mte_param_stats,
         param_stats_ctx=True,
     )
@@ -473,102 +695,6 @@ def prepare_batch(pb_named, effective_dt, ctx: EikonalContext):
         m6s = np.array([m for _p, m, _r in pb_named])
         return _prepare_batch_vec(pv, m6s, rotmats, effective_dt, ctx)
     return _prepare_batch_loop(pb_named, effective_dt, ctx)
-
-
-def _prepare_batch_vec(pv, m6s, rotmats, effective_dt, ctx: EikonalContext):
-    """Batched prepare: same quantities as _prepare_batch_loop, computed
-    with batch-axis numpy.  Bit-compatible: every per-source float64
-    operation runs in the same order as the loop."""
-    b = m6s.shape[0]
-    centers = np.stack([pv["north"], pv["east"], pv["depth"]], axis=-1)
-
-    # boundary polygons: transformed unit circles (circle_to_polygon),
-    # batched; then the constraint clips (Sutherland-Hodgman) in one
-    # batched pass per half-space
-    shift_rc = np.stack(
-        [pv["bord_shift_x"], pv["bord_shift_y"], np.zeros(b)], axis=-1)
-    # np.matmul with the scalar loop's per-item shapes: bit-identical to
-    # the loop (einsum picks different kernels and drifts by 1 ulp, which
-    # could flip a grid-dim ceil against discretize_eikonal_host)
-    ccenters = np.matmul(rotmats, shift_rc[..., None])[..., 0] + centers
-    transforms = -rotmats * pv["bord_radius"][:, None, None]
-    npoints = 180
-    i = np.arange(1, npoints + 1)
-    ang = i * 2.0 * np.pi / npoints
-    unit = np.stack([np.cos(ang), np.sin(ang), np.zeros(npoints)], axis=0)
-    polys = (np.matmul(transforms, unit).transpose(0, 2, 1)
-             + ccenters[:, None, :])
-    counts = np.full(b, npoints, dtype=np.int64)
-    for hp, hn in ctx.constraints:
-        polys, counts = geom.trim_polygon_batch(polys, counts, hp, hn)
-        if (counts == 0).any():
-            raise ValueError("Empty rupture area")
-
-    polys_rc = np.matmul(polys - centers[:, None, :], rotmats)
-    min_rc = polys_rc.min(axis=1)  # pad rows repeat vertex 0: box-safe
-    max_rc = polys_rc.max(axis=1)
-
-    # nucleation point must lie inside (psm_initial_point_intolerant_rc)
-    nukls3 = np.stack(
-        [pv["nukl_shift_x"], pv["nukl_shift_y"], np.zeros(b)], axis=-1)
-    nukl_ned = np.matmul(rotmats, nukls3[..., None])[..., 0] + centers
-    bad = np.hypot(nukls3[:, 0], nukls3[:, 1]) > pv["bord_radius"]
-    for hp, hn in ctx.constraints:
-        bad |= (np.asarray(hn) @ (np.asarray(hp)[None, :] - nukl_ned).T) < 0.0
-    if bad.any():
-        raise ValueError(
-            "position of nucleation point is outside of rupture region")
-
-    deltagrid = min(100.0 * effective_dt / 2.0, 4000.0)
-    dims = (max_rc - min_rc)[:, :2]
-    ndims = np.maximum(np.ceil(dims / deltagrid).astype(int), 1)
-    deltas = np.where(ndims > 0, dims / ndims, 1.0)
-    deltas = np.where(deltas == 0.0, 1.0, deltas)
-
-    # min rupture speed over each grid's depth range: vs is a step
-    # function of depth, so the min over [zlo, zhi] is the min of the
-    # layer intervals the range touches (same candidates the loop probes)
-    corners_x = np.stack([min_rc[:, 0], min_rc[:, 0],
-                          max_rc[:, 0], max_rc[:, 0]], axis=-1)
-    corners_y = np.stack([min_rc[:, 1], max_rc[:, 1],
-                          min_rc[:, 1], max_rc[:, 1]], axis=-1)
-    zs = (centers[:, 2:3] + rotmats[:, 2, 0:1] * corners_x
-          + rotmats[:, 2, 1:2] * corners_y)  # [B, 4]
-    zlo, zhi = zs.min(axis=1), zs.max(axis=1)
-    depths = np.asarray(ctx.layer_depths, np.float64)
-    vs = np.asarray(ctx.layer_vs, np.float64)
-    nv = vs.shape[0]
-    k0 = np.minimum(np.searchsorted(depths, zlo, side="left"), nv - 1)
-    k1 = np.minimum(np.searchsorted(depths, zhi, side="left"), nv - 1)
-    kk = np.arange(nv)[None, :]
-    sel = (kk >= k0[:, None]) & (kk <= k1[:, None])
-    vmins = np.where(sel, vs[None, :], np.inf).min(axis=1)
-    minspeeds = vmins * pv["rel_vrup"]
-
-    maxd = 0.5 * effective_dt * minspeeds
-    nxy = np.where(
-        dims != 0.0,
-        np.maximum(np.floor(dims / maxd[:, None]).astype(int) + 1, 2),
-        1,
-    )
-    cdims = nxy
-    cdeltas = np.where(nxy > 0, dims / nxy, 1.0)
-
-    def pad8(n):
-        return int(-(-max(n, 1) // 8) * 8)
-
-    static = {
-        "NF": (pad8(ndims[:, 0].max()), pad8(ndims[:, 1].max())),
-        "NC": (int(cdims[:, 0].max()), int(cdims[:, 1].max())),
-    }
-    arrays = dict(
-        first=min_rc[:, :2], delta=deltas, ndims=ndims,
-        nukl=nukls3[:, :2], center=centers, rotmat=rotmats, m6=m6s,
-        ccenter=ccenters, radius=pv["bord_radius"].copy(), cdims=cdims,
-        cdelta=cdeltas, minspeed=minspeeds, time0=pv["time"].copy(),
-        relv=pv["rel_vrup"].copy(),
-    )
-    return static, arrays
 
 
 def _prepare_batch_loop(pb_named, effective_dt, ctx: EikonalContext):
@@ -647,11 +773,8 @@ def _prepare_batch_loop(pb_named, effective_dt, ctx: EikonalContext):
         times0[i] = p["time"]
         relvs[i] = p["rel_vrup"]
 
-    def pad8(n):
-        return int(-(-max(n, 1) // 8) * 8)
-
     static = {
-        "NF": (pad8(ndims[:, 0].max()), pad8(ndims[:, 1].max())),
+        "NF": (eik_prepare.pad8(ndims[:, 0].max()), eik_prepare.pad8(ndims[:, 1].max())),
         "NC": (int(cdims[:, 0].max()), int(cdims[:, 1].max())),
     }
     arrays = dict(
@@ -685,8 +808,8 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
     in a stable order (the rupture disc covers ~60% of its bounding box's
     coarse grid, and the synthesis pays for every table row).  The
     "overflow" output counts dropped active cells / clipped time cells per
-    source so that the engine can detect a too-tight calibration without a
-    sync (engine._discretize_batch_host).
+    source so that BatchDiscretizer can detect a too-tight calibration
+    without a sync.
     """
     from ..ops import eik_sweep
 

@@ -6,7 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import _cols_const, SourceModel, plf4_cell_weights, register
+from ..ops.bilat_tables import plf4_cell_weights
+from .base import _cols_const, SourceModel, register
 
 BIG = np.float32(np.finfo(np.float32).max)
 

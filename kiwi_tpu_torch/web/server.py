@@ -95,7 +95,7 @@ class SeismogramApp:
         """Discretized centroid table of a generation's source (feeds the
         /source3d viewer -- the 3-D rupture-geometry role of the reference's
         snufflek/kinherd_sourceview VTK viewers)."""
-        from ..engine import to_host
+        from ..profiling import to_host
         from ..sources import get_source_model
 
         form = self._load(session, generation)["form"]
@@ -110,7 +110,7 @@ class SeismogramApp:
             eng = self.engine
             eng.set_effective_dt(float(form.get("effective_dt", self.store.dt)))
             eng.set_source_params(stype, params)
-            cb, _m, _r, _s, _g = eng._discretize_batch(params[None, :])
+            cb = eng.discretize(params[None, :]).tables
             # the tables may sit on the card: one copy to the host
             keys = ("active", "m", "north", "east", "depth", "time")
             tab = dict(zip(keys, to_host(*(cb[k][0] for k in keys))))

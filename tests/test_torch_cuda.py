@@ -518,7 +518,7 @@ def test_eik_prepare_on_the_engine_path(cuda_dev):
     batch = eik_prepare_cases.session_batch()
     eng.global_misfits_for_source_batch(batch)  # calibrates and cross-checks
     before = eik_prepare.launches["eik_prepare"]
-    waits = eik_prepare_cases.waits(lambda: eng._discretize_batch(batch))
+    waits = eik_prepare_cases.waits(lambda: eng.discretize(batch))
     assert eik_prepare.launches["eik_prepare"] == before + 1
     assert waits == eik_prepare_cases.SESSION_WAITS
     got = eng.global_misfits_for_source_batch(batch).cpu().numpy()
@@ -568,11 +568,11 @@ def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):
         return out
 
     monkeypatch.setattr(eiksrc, "discretize_device_batch", corrupt)
-    eng._eikonal_checked_keys.clear()
+    eng.batch_discretizer().checked_keys.clear()
     eng._invalidate()
     with pytest.raises(RuntimeError, match="disagrees with the host FMM oracle.*member 1"):
         eng.global_misfits_for_source_batch(batch)
-    assert eng.eikonal_device is True
+    assert eng.batch_discretizer().on_device is True
 
 
 def _card_and_cpu_engines(dev, dt, method, shiftrange):

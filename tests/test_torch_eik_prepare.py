@@ -1,7 +1,7 @@
 """The eikonal batch preparation's wrapper and its engine path on the CPU
-(kiwi_tpu_torch.ops.eik_prepare, Engine._discretize_batch_host).
+(kiwi_tpu_torch.ops.eik_prepare, sources/eikonal.BatchDiscretizer).
 
-On the CPU the wrapper runs the plain version (sources/eikonal.
+On the CPU the wrapper runs the plain version (ops/eik_prepare.
 _prepare_batch_vec) and launches nothing; its arrays are the plain
 version's, cast as the kernel writes them; the rows' [B, 25] packing and
 the context's tensor round trip; the summary maps to the discretizer's
@@ -98,7 +98,7 @@ def _split_context(arr, sizes):
 @pytest.mark.parametrize("constraints", [cases.DEFAULT, cases.OBLIQUE, []])
 def test_context_round_trip(constraints):
     ctx = cases.context(constraints)
-    arr, sizes = eik_prepare.context_array(ctx)
+    arr, sizes = eik_prepare.context_array(ctx.constraints, ctx.layer_depths, ctx.layer_vs)
     assert arr.dtype == np.float64 and sizes == (len(constraints), 5, 6)
     assert arr.size == 6 * len(constraints) + 5 + 6 + 2 * eik_prepare.NPOINTS
     cons, depths, vs, cos, sin = _split_context(arr, sizes)
@@ -217,5 +217,5 @@ def test_device_discretization_waits(engine, monkeypatch):
     monkeypatch.setattr(eik_sweep, "to_device",
                         lambda x, dev, dtype=None: torch.as_tensor(x, dtype=dtype, device=dev))
     batch = cases.session_batch()
-    engine._discretize_batch(batch)
-    assert cases.waits(lambda: engine._discretize_batch(batch)) == cases.SESSION_WAITS
+    engine.discretize(batch)
+    assert cases.waits(lambda: engine.discretize(batch)) == cases.SESSION_WAITS

@@ -365,6 +365,15 @@ def kiwi_spans(monkeypatch):
                         narrowed(jmf.evaluate_misfits_floating_batch, "risetimes"))
 
 
+def _device_switch(eng):
+    """(holder, attribute, cross-checked keys) of the device discretizer's
+    switch: the JAX engine's fields, the port's batch discretizer's."""
+    if isinstance(eng, TEngine):
+        disc = eng.batch_discretizer()
+        return disc, "on_device", disc.checked_keys
+    return eng, "eikonal_device", eng._eikonal_checked_keys
+
+
 def _on_axis(values, itmin, lo, hi):
     """A trace (zero before itmin, its last value after its end) at the
     absolute samples lo..hi."""
@@ -379,15 +388,16 @@ def test_engine_batch_matches(engines, kiwi_spans, name):
     out = {}
     for eng in engines:
         batch = _eik_session(eng, name)
+        holder, flag, checked = _device_switch(eng)
         for dev in (False, True):
-            eng.eikonal_device = dev
-            eng._eikonal_checked_keys.clear()
+            setattr(holder, flag, dev)
+            checked.clear()
             eng._invalidate()
             m, n, fs = eng.misfits_for_source_batch(batch)
             g = eng.global_misfits_for_source_batch(batch)
-            assert eng.eikonal_device is dev  # no fallback
+            assert getattr(holder, flag) is dev  # no fallback
             out[isinstance(eng, TEngine), dev] = [np.asarray(x) for x in (m, n, fs, g)]
-        eng.eikonal_device = True
+        setattr(holder, flag, True)
     for dev in (False, True):
         (jm, jn, jfs, jg), (tm, tn, tfs, tg) = out[False, dev], out[True, dev]
         assert tg.dtype == np.float32 and tg.shape == (len(RADII),)
@@ -435,15 +445,16 @@ def test_eikonal_crosscheck_catches_corrupt_member(engines, monkeypatch, caplog)
         return out
 
     monkeypatch.setattr(tsrc, "discretize_device_batch", corrupt)
-    te.eikonal_device = True
-    te._eikonal_checked_keys.clear()
+    disc = te.batch_discretizer()
+    disc.on_device = True
+    disc.checked_keys.clear()
     te._invalidate()
     with caplog.at_level(logging.WARNING):
         g = te.global_misfits_for_source_batch(batch)
-    assert te.eikonal_device is False, "corruption not caught"
+    assert disc.on_device is False, "corruption not caught"
     assert any("disagrees" in r.message for r in caplog.records)
     assert np.argmin(g.numpy()) == 1  # the host pipeline answered
-    te.eikonal_device = True
+    disc.on_device = True
     te._invalidate()
 
 
@@ -453,26 +464,27 @@ def test_eikonal_table_calibration(engines, caplog):
     calibration is caught by the deferred overflow guard one batch later."""
     te = engines[1]
     batch = _eik_session(te)
-    te.eikonal_device = True
-    te._eikonal_checked_keys.clear()
-    te._eik_calib.clear()
-    te._eik_pending.clear()
-    _cb, *_rest, gsize = te._discretize_batch(batch)
-    (ckey, calib), = te._eik_calib.items()
+    disc = te.batch_discretizer()
+    disc.on_device = True
+    disc.checked_keys.clear()
+    disc.calib.clear()
+    disc.pending.clear()
+    gsize = te.discretize(batch).group_size
+    (ckey, calib), = disc.calib.items()
     ntmax, _budget, ntmax_hard = calib
     assert ntmax < ntmax_hard, "calibration should beat the hard bound here"
     assert gsize == ntmax
-    assert len(te._eik_pending) == 1
-    te._check_eik_overflow()  # on the CPU the counter is ready at once
-    assert not te._eik_pending
-    assert te._eik_calib[ckey] == calib, "overflow guard fired wrongly"
+    assert len(disc.pending) == 1
+    disc.check_overflow()  # on the CPU the counter is ready at once
+    assert not disc.pending
+    assert disc.calib[ckey] == calib, "overflow guard fired wrongly"
 
-    te._eik_calib[ckey] = (1, 8, ntmax_hard)
+    disc.calib[ckey] = (1, 8, ntmax_hard)
     te._invalidate()
-    te._discretize_batch(batch)
+    te.discretize(batch)
     with caplog.at_level(logging.WARNING):
-        te._check_eik_overflow(force=True)
-    assert te._eik_calib[ckey] == (ntmax_hard, None, ntmax_hard)
+        disc.check_overflow(force=True)
+    assert disc.calib[ckey] == (ntmax_hard, None, ntmax_hard)
     assert any("overflow" in r.message for r in caplog.records)
     te._invalidate()
 

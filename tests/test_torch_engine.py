@@ -9,7 +9,9 @@ synthetic reference traces at 1e-6 of their max (float32 rounding of the
 same linear map, summed in another order).
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -323,3 +325,49 @@ def test_port_imports_neither_jax_nor_reference():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout) >= 63
+
+
+def _imported_modules(path):
+    """The absolute module names a port module imports from (for `from X
+    import a, b` both X and X.a, X.b: a name may be a submodule)."""
+    parts = list(path.relative_to(REPO).with_suffix("").parts)
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = parts[:len(parts) - node.level] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            out.add(mod)
+            out.update(f"{mod}.{a.name}" for a in node.names)
+    return out
+
+
+def _layering_faults(rule):
+    pkg = pathlib.Path(REPO) / "kiwi_tpu_torch"
+    if rule == "ops_import_no_sources_or_engine":
+        return {str(p): sorted(m for m in _imported_modules(p)
+                               if m.startswith(("kiwi_tpu_torch.sources", "kiwi_tpu_torch.engine")))
+                for p in (pkg / "ops").glob("*.py")}
+    if rule == "engine_imports_no_eik_prepare":
+        return {"engine.py": sorted(m for m in _imported_modules(pkg / "engine.py")
+                                    if m.startswith("kiwi_tpu_torch.ops.eik_prepare"))}
+    # no module but the engine calls a private _discretize* method
+    calls = {}
+    for p in [*pkg.rglob("*.py"), pathlib.Path(REPO) / "chip_smoke.py"]:
+        if p.name != "engine.py" or p.parent != pkg:
+            calls[str(p)] = sorted(
+                n.attr for n in ast.walk(ast.parse(p.read_text()))
+                if isinstance(n, ast.Attribute) and n.attr.startswith("_discretize"))
+    return calls
+
+
+@pytest.mark.parametrize("rule", ["ops_import_no_sources_or_engine",
+                                  "engine_imports_no_eik_prepare", "no_private_discretize_calls"])
+def test_layering(rule):
+    """The kernel layer imports nothing above it, the engine reaches the
+    eikonal preparation only through the source model, and other modules
+    discretize through Engine.discretize alone (read with ast)."""
+    faults = _layering_faults(rule)
+    assert faults, "no module checked"
+    assert not any(faults.values()), {k: v for k, v in faults.items() if v}

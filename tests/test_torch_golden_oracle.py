@@ -219,7 +219,7 @@ def test_eikonal_matches_cpp_oracle(store, oracle_bin, tmp_path):
     from the rupture grid the port's host discretizer prepares."""
     eng, geom = make_engine(store, False)
     eng.set_source_constraints(*EIK_CONSTRAINTS)
-    eng.eikonal_device = False  # the host FMM path
+    eng.batch_discretizer("eikonal").on_device = False  # the host FMM path
     ctx = eng.eikonal_context()
     models = []
     for p in [EIK_REF] + EIK_DUMPS:

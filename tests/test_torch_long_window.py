@@ -112,8 +112,8 @@ def test_long_window_plan_matches(long_engines, monkeypatch, method, shiftrange)
 
 
 def _tables(eng, pb):
-    cbatch, moments, risetimes, _shape, _g = eng._discretize_batch(pb)
-    return cbatch, torch.as_tensor(moments), torch.as_tensor(risetimes)
+    d = eng.discretize(pb)
+    return d.tables, torch.as_tensor(d.moments), torch.as_tensor(d.risetimes)
 
 
 def test_window_plans_keep_the_kernel(monkeypatch):
