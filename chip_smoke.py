@@ -297,6 +297,8 @@ SOURCES = {
     "eik_sweep": "kiwi_tpu_torch/csrc/eik_sweep.cu",
     "bilat_tables": "kiwi_tpu_torch/csrc/bilat_tables.cu",
     "eik_prepare": "kiwi_tpu_torch/csrc/eik_prepare.cu",
+    "eik_speeds": "kiwi_tpu_torch/csrc/eik_tables.cu",
+    "eik_tables": "kiwi_tpu_torch/csrc/eik_tables.cu",
 }
 # the device kernels of each wrapper, as torch.profiler names them
 KERNELS = {
@@ -307,6 +309,8 @@ KERNELS = {
     "eik_sweep": ("eik_wavefront_kernel", "eik_diagonal_kernel"),
     "bilat_tables": ("bilat_tables_kernel",),
     "eik_prepare": ("eik_prepare_kernel",),
+    "eik_speeds": ("eik_speeds_kernel",),
+    "eik_tables": ("eik_cells_kernel", "eik_tables_kernel"),
 }
 REPLACES = {
     "fused_scan": "kiwi_tpu/ops/float_scan.py:193",
@@ -320,6 +324,9 @@ REPLACES = {
     "bilat_tables": "XLA fusion of kiwi_tpu/sources/bilat.py:73",
     # no Pallas kernel: the JAX package prepares the eikonal batch in numpy
     "eik_prepare": "host numpy of kiwi_tpu/sources/eikonal.py:462",
+    # no Pallas kernel: XLA fuses the device discretizer's pre and one
+    "eik_speeds": "XLA fusion of kiwi_tpu/sources/eikonal.py:716",
+    "eik_tables": "XLA fusion of kiwi_tpu/sources/eikonal.py:724",
 }
 
 
@@ -992,13 +999,14 @@ def run_main_path(label, launch_names, run):
     """run() with every launch counter set to 0 just before and read just
     after; fails unless each of the path's kernels was launched."""
     from kiwi_tpu_torch.ops import (bilat_tables as bl, eik_prepare as ep, eik_sweep as es,
-                                    float_scan as fs, synth_window as sw)
+                                    eik_tables as et, float_scan as fs, synth_window as sw)
 
-    for counts in (fs.launches, sw.launches, es.launches, bl.launches, ep.launches):
+    for counts in (fs.launches, sw.launches, es.launches, bl.launches, ep.launches, et.launches):
         for k in counts:
             counts[k] = 0
     out = run()
-    counts = {**fs.launches, **sw.launches, **es.launches, **bl.launches, **ep.launches}
+    counts = {**fs.launches, **sw.launches, **es.launches, **bl.launches, **ep.launches,
+              **et.launches}
     log(f"phase launches on the main path ({label}): {counts}")
     for name in launch_names:
         if counts[name] <= 0:
@@ -2515,24 +2523,27 @@ def profile_gradient(eng, reps=2):
 
 
 def profile_eikonal(eng, radii, results, reps=5):
-    """profile_calls over eikonal calls, one eik_prepare launch each; then
-    the batch preparation's kernel against its plain version
-    (sources/eikonal._prepare_batch_vec, cast as the discretizer casts) on
-    the same rows: sizes and the static shape equal, floats within one
-    float32 ulp (equal where the host's BLAS rounds as the kernel assumes,
-    csrc/eik_prepare.cu), timed as in 3 beside the plain version's host
-    time."""
+    """profile_calls over eikonal calls, one launch each of eik_prepare,
+    eik_speeds and eik_tables; then the batch preparation's kernel against
+    its plain version (sources/eikonal._prepare_batch_vec, cast as the
+    discretizer casts) on the same rows: sizes and the static shape equal,
+    floats within one float32 ulp (equal where the host's BLAS rounds as the
+    kernel assumes, csrc/eik_prepare.cu), timed as in 3 beside the plain
+    version's host time; then the fine-grid kernels against theirs
+    (profile_eik_tables)."""
     import torch
 
     from kiwi_tpu_torch.ops import eik_prepare as ep
+    from kiwi_tpu_torch.ops import eik_tables as et
     from kiwi_tpu_torch.sources import eikonal as eiksrc
 
     pb = eik_rows(radii)
-    before = ep.launches["eik_prepare"]
+    before = {**ep.launches, **et.launches}
     profile_calls("eikonal", lambda: eng.global_misfits_for_source_batch(pb), reps)
-    per_call = (ep.launches["eik_prepare"] - before) / (reps + 1)  # and the warm call
-    if per_call != 1:
-        fail(f"expected one eik_prepare launch per eikonal call, saw {per_call}")
+    for name in before:
+        per_call = ({**ep.launches, **et.launches}[name] - before[name]) / (reps + 1)
+        if per_call != 1:  # and the warm call
+            fail(f"expected one {name} launch per eikonal call, saw {per_call}")
     ctx, edt = eng.eikonal_context(), eng.effective_dt
     named = eiksrc.named_params_batch("eikonal", pb)
     rows = ep.rows_on(named, eng.device)
@@ -2575,6 +2586,75 @@ def profile_eikonal(eng, radii, results, reps=5):
         f"each by CUDA events; other device ops a call {others}), plain numpy "
         f"{plain_ms:.3f} ms of host time, bound {bound_ms:.6f} ms ({bound_by})")
     rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    ntmax, budget, _hard = eng.batch_discretizer().calib[
+        ("eikonal", static[0]["NF"], static[0]["NC"], float(edt), ctx.content_key())]
+    profile_eik_tables(got, static[0], ctx, edt, ntmax, budget, results)
+
+
+def profile_eik_tables(arrays, static, ctx, edt, ntmax, budget, results):
+    """The eikonal discretizer's fine-grid kernels (csrc/eik_tables.cu)
+    against their plain torch versions on the card, on one prepared batch
+    and the solve's own times at the engine's calibrated budget: the speeds
+    bit for bit; the tables' time cells (nt, active) equal but in coarse
+    cells whose duration over edt lies within 1e-5 of a whole number
+    (eik_tables.boundary_cells: the kernel sums in float64, the plain
+    version's einsums in float32, and there the floor can move), the
+    overflow count equal for sources with no such cell, and the floats at
+    1e-6 of each field's largest magnitude where the time cells agree; each
+    timed as in 3, the plain version by CUDA events."""
+    import torch
+
+    from kiwi_tpu_torch.ops import eik_sweep as es
+    from kiwi_tpu_torch.ops import eik_tables as et
+
+    ctx_arr, sizes = et.context_on(arrays["first"].device, ctx)
+    NF, NC = static["NF"], static["NC"]
+    speeds = et.eik_speeds(arrays, ctx_arr, sizes, NF)
+    plain_speeds = et.speeds_reference(arrays, ctx_arr, sizes, NF)
+    nfar = int((speeds.view(torch.int32) != plain_speeds.view(torch.int32)).sum())
+    times = es.sweep_solve_batch(speeds, arrays["delta"], arrays["first"], arrays["nukl"],
+                                 n_rounds=2)
+    args = (arrays, times, ctx_arr, sizes, NC, ntmax, budget, edt)
+    got, want = et.eik_tables(*args), et.tables_reference(*args)
+    B = speeds.shape[0]
+    near = et.boundary_cells(arrays, times, ctx_arr, sizes, NC, budget, edt)
+    apart = (got["active"].view(B, -1, ntmax).sum(-1)
+             != want["active"].view(B, -1, ntmax).sum(-1))
+    same = ~apart[:, :, None].expand(-1, -1, ntmax).reshape(B, -1)
+    quiet = ~near.any(dim=1)
+    nfree = int((apart & ~near).sum()) + int((got["active"] != want["active"])[same].sum())
+    over_ok = torch.equal(got["overflow"][quiet], want["overflow"][quiet])
+    errs = {k: float((got[k] - want[k]).abs()[same].max()) for k in
+            ("north", "east", "depth", "time", "m")}
+    worst = max(errs[k] / max(float(want[k].abs().max()), 1e-30) for k in errs)
+    log(f"  eik_speeds: B={B}, NF {NF}: {nfar} speeds differ from the plain version's bits; "
+        f"eik_tables: NC {NC}, ntmax {ntmax}, budget {budget}: {int(near.sum())} coarse cells "
+        f"within 1e-5 of a time-cell boundary, {int(apart.sum())} with another nt, "
+        f"{nfree} of them or of the active flags elsewhere; overflow equal where no cell is "
+        f"near: {over_ok}; the rest at most {worst:.3e} of their field's largest")
+    if nfar or nfree or not over_ok or worst > 1e-6:
+        fail(f"eik_speeds / eik_tables differ from their plain versions: {nfar} speeds, "
+             f"{nfree} time cells away from a boundary, overflow equal {over_ok}, {worst:.3e}")
+    # speeds written once; times read once, the tables written once
+    C = got["north"].shape[1]
+    bounds = {"eik_speeds": bound(4 * speeds.numel(), 0),
+              "eik_tables": bound(4 * speeds.numel() + B * C * (4 * 4 + 6 * 4 + 1), 0)}
+    launches = {"eik_speeds": lambda: et.eik_speeds(arrays, ctx_arr, sizes, NF),
+                "eik_tables": lambda: et.eik_tables(*args)}
+    plains = {"eik_speeds": lambda: et.speeds_reference(arrays, ctx_arr, sizes, NF),
+              "eik_tables": lambda: et.tables_reference(*args)}
+    results["eik_speeds"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}  # bit for bit
+    results["eik_tables"] = {"max_abs_err": max(errs.values()), "max_rel_err": worst}
+    for name, launch in launches.items():
+        ms, others = device_ms(launch, 20, KERNELS[name])
+        plain_ms = cuda_ms(plains[name], 5)
+        bound_ms, bound_by = bounds[name]
+        log(f"  {name}: kernels {ms:.4f} ms on the device a call (other device ops a call "
+            f"{others}), plain torch {plain_ms:.4f} ms by CUDA events, bound {bound_ms:.6f} ms "
+            f"({bound_by})")
+        # no one PyTorch call computes the speeds or the tables
+        results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
 
 
 def compare_gradient(grad, store):
@@ -2645,7 +2725,7 @@ def main():
     if os.path.dirname(os.path.dirname(os.path.abspath(kiwi_tpu_torch.__file__))) != HERE:
         fail(f"kiwi_tpu_torch imported from {kiwi_tpu_torch.__file__}, not this checkout")
     from kiwi_tpu_torch.ops import (bilat_tables as bl, build, eik_prepare as ep, eik_sweep as es,
-                                    float_scan as fs, synth_window as sw)
+                                    eik_tables as et, float_scan as fs, synth_window as sw)
 
     if any(m == "jax" or m.startswith(("jax.", "kiwi_tpu.")) or m == "kiwi_tpu"
            for m in sys.modules):
@@ -2660,6 +2740,7 @@ def main():
     es._library()
     bl._library()
     ep._library()
+    et._library()
     log(f"phase build: {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
@@ -2719,7 +2800,7 @@ def main():
          lambda: run_finite(finite["finite"], batches, "unfiltered")),
         ("finite_filtered", ("window_synth", "bilat_tables"),
          lambda: run_finite(finite["finite_filtered"], batches[:4], "filtered")),
-        ("eikonal", ("eik_prepare", "eik_sweep", "window_synth"),
+        ("eikonal", ("eik_prepare", "eik_speeds", "eik_sweep", "eik_tables", "window_synth"),
          lambda: run_eikonal(eik, [radii] * 4)),
         ("grid", ("window_synth", "scan_sums", "bilat_tables"),
          lambda: run_grid(finite["finite"], inv)),

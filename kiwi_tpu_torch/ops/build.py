@@ -37,8 +37,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # flags one source adds: the eikonal preparation contracts no product into
-# an FMA but those it writes out, so that it rounds as the host's numpy
-SOURCE_FLAGS = {"eik_prepare.cu": ("-fmad=false",)}
+# an FMA but those it writes out, so that it rounds as the host's numpy; the
+# eikonal tables contract none, so that their speeds round as the card's
+# torch chain
+SOURCE_FLAGS = {"eik_prepare.cu": ("-fmad=false",), "eik_tables.cu": ("-fmad=false",)}
 
 
 def find_nvcc():

@@ -62,10 +62,10 @@ def count(name, n=1):
 
 def snapshot():
     """A copy of the counters, the kernels' launch counters included."""
-    from .ops import bilat_tables, eik_prepare, eik_sweep, float_scan, synth_window
+    from .ops import bilat_tables, eik_prepare, eik_sweep, eik_tables, float_scan, synth_window
 
     out = dict(counters)
-    for mod in (float_scan, synth_window, eik_sweep, bilat_tables, eik_prepare):
+    for mod in (float_scan, synth_window, eik_sweep, bilat_tables, eik_prepare, eik_tables):
         for k, v in mod.launches.items():
             out["launches." + k] = v
     return out

@@ -17,9 +17,9 @@ Two pipelines, as in the JAX package:
   per-source tables to a common length with `active` masks;
 * device (`discretize_device_batch`): what fixes shapes is prepared first
   (ops/eik_prepare.py; `prepare_batch` on the host), then the whole batch
-  is discretized in torch on the engine's device, the solve through
-  ops/eik_sweep.sweep_solve_batch (the CUDA kernel on the card, its plain
-  version on the CPU).
+  is discretized on the engine's device: the speeds, the solve
+  (ops/eik_sweep.sweep_solve_batch) and the tables (ops/eik_tables.py), a
+  CUDA kernel each on the card, their plain versions on the CPU.
 `BatchDiscretizer` chooses between them for the engine (the models'
 `batch_discretizer`), calibrates the device tables and cross-checks them.
 """
@@ -35,8 +35,9 @@ import torch
 from .. import eikonal as eik
 from .. import geometry as geom
 from ..euler import init_euler
-from ..ops import eik_prepare
+from ..ops import eik_prepare, eik_tables
 from ..ops.eik_prepare import _prepare_batch_vec
+from ..ops.eik_tables import coarse_index
 from ..plf import PLF
 from ..profiling import count, span, to_device, to_host
 from .base import SourceModel, register
@@ -90,17 +91,6 @@ def _discretize_subfault_time(dursf, risetime, maxdt):
     it = np.arange(nt)
     w, toff = stf.integrate_and_centroid(stf.x[0] + dt * it, stf.x[0] + dt * (it + 1))
     return np.atleast_1d(w), np.atleast_1d(toff)
-
-
-def coarse_index(i, nc, nd):
-    """The coarse cell (of nc) that holds the centre of fine cell i (of nd)
-    along one axis: floor((i + 1/2) delta / cdelta) with delta = dims / nd
-    and cdelta = dims / nc, which is floor((2 i + 1) nc / (2 nd)), in
-    integers.  A centre on a coarse boundary -- the middle fine cell of an
-    odd nd under an even nc -- goes to the upper cell, as exact arithmetic
-    puts it, where a floating-point quotient would decide it by rounding.
-    Works on numpy arrays and torch tensors alike."""
-    return ((2 * i + 1) * nc) // (2 * nd)
 
 
 def discretize_eikonal_host(p, effective_dt, ctx: EikonalContext, m6_unit,
@@ -791,18 +781,20 @@ def _prepare_batch_loop(pb_named, effective_dt, ctx: EikonalContext):
 
 
 def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
-                            nt_cell_max, n_rounds=2, ncell_budget=None,
-                            device="cuda"):
+                            nt_cell_max, n_rounds=2, ncell_budget=None):
     """The batched eikonal discretizer for one static shape: a function of
-    the prepared arrays (dict of tensors [B, ...] on `device`) returning the
-    centroid tables [B, C] (and m [B, C, 6], overflow i32[B]).
+    the prepared arrays (dict of tensors [B, ...] on one device) returning
+    the centroid tables [B, C] on it (and m [B, C, 6], overflow i32[B]).
 
     Same pipeline as discretize_eikonal_host with the batch dimension
     written out; the fine grids are padded to the common static shape NF
     (cells beyond a source's own dims get half the minimum rupture speed in
     the solver and are masked after it).  The solve is the fast-sweeping
     kernel instead of the FMM heap; both converge to the same viscosity
-    solution (eikonal.py).
+    solution (eikonal.py).  The passes before and after it are
+    ops/eik_tables.py's (a kernel each on the card, the plain torch chain
+    on the CPU); the session's context comes from eik_prepare's cached
+    device tensor, so a call copies nothing to the device.
 
     ncell_budget (optional): keep only that many coarse cells, actives first
     in a stable order (the rupture disc covers ~60% of its bounding box's
@@ -813,128 +805,18 @@ def make_device_discretizer(static, effective_dt, ctx: EikonalContext,
     """
     from ..ops import eik_sweep
 
-    dev = torch.device(device)
     nfx, nfy = static["NF"]
-    ncx, ncy = static["NC"]
-    layer_depths = to_device(np.asarray(ctx.layer_depths), dev, F32)
-    layer_vs = to_device(np.asarray(ctx.layer_vs), dev, F32)
-    cons = [(to_device(np.asarray(p), dev, F32), to_device(np.asarray(n), dev, F32))
-            for p, n in ctx.constraints]
-    edt = to_device(effective_dt, dev, F32)
-    ax = torch.arange(nfx, device=dev)
-    ay = torch.arange(nfy, device=dev)
-
-    def _geom(a):
-        """Fine-grid points [B, nfx, nfy, 3] + rupture-area mask (recomputed
-        on both sides of the solve, as the JAX package does)."""
-        first, delta, nd = a["first"], a["delta"], a["ndims"]
-        px = first[:, 0, None] + (ax.to(F32) + 0.5) * delta[:, 0, None]  # [B, nfx]
-        py = first[:, 1, None] + (ay.to(F32) + 0.5) * delta[:, 1, None]  # [B, nfy]
-        bb = px.shape[0]
-        PX = px[:, :, None].expand(bb, nfx, nfy)
-        PY = py[:, None, :].expand(bb, nfx, nfy)
-        inbounds = (ax[None, :, None] < nd[:, 0, None, None]) & (
-            ay[None, None, :] < nd[:, 1, None, None])
-        # rot @ (PX, PY, 0) + center, the product's terms in order, float32
-        rot = a["rotmat"][:, None, None]  # [B, 1, 1, 3, 3]
-        pts = (rot[..., 0] * PX[..., None] + rot[..., 1] * PY[..., None]
-               + rot[..., 2] * 0.0) + a["center"][:, None, None, :]
-        rvec = pts - a["ccenter"][:, None, None, :]
-        inside = torch.sqrt((rvec * rvec).sum(-1)) <= a["radius"][:, None, None]
-        for cp, cn in cons:
-            inside = inside & (((cp - pts) * cn).sum(-1) >= 0.0)
-        return px, py, pts, inside & inbounds
-
-    def pre(a):
-        _px, _py, pts, inside = _geom(a)
-        k = torch.searchsorted(layer_depths, pts[..., 2].contiguous(), side="left")
-        vs = layer_vs[torch.clamp(k, max=layer_vs.shape[0] - 1)]
-        speed = torch.where(inside, vs * a["relv"][:, None, None], 0.0)
-        return torch.where(speed == 0.0, 0.5 * a["minspeed"][:, None, None], speed)
-
-    def post(a, times):
-        px, py, pts, inside = _geom(a)
-        bb = px.shape[0]
-        valid = inside & (times < float(eik.BIG) * 0.5)
-
-        # downsample fine -> coarse (psm_downsample_grid): the coarse cell of
-        # a fine point is separable (cix depends on the x index only, ciy on
-        # y), so the per-cell sums are two small 0/1 matmuls, float32 with
-        # TF32 off (the JAX package pins precision=HIGHEST); the index in
-        # integers (coarse_index), cells past a source's own grid masked
-        nd, cdims = a["ndims"].long(), a["cdims"].long()
-        cix1 = torch.clamp(coarse_index(ax[None, :], cdims[:, 0, None], nd[:, 0, None]),
-                           max=ncx - 1)  # [B, nfx]
-        ciy1 = torch.clamp(coarse_index(ay[None, :], cdims[:, 1, None], nd[:, 1, None]),
-                           max=ncy - 1)  # [B, nfy]
-        mx = (cix1[:, None, :] == torch.arange(ncx, device=dev)[None, :, None]).to(F32)
-        my = (ciy1[:, None, :] == torch.arange(ncy, device=dev)[None, :, None]).to(F32)
-        wmask = valid.to(F32)  # [B, nfx, nfy]
-        ncell = ncx * ncy
-
-        def seg2(field):
-            """sum of field*w per coarse cell, flattened in cix*ncy+ciy order."""
-            return torch.einsum("bcx,bxy,bdy->bcd", mx, field * wmask, my).reshape(bb, ncell)
-
-        counts = seg2(torch.ones_like(wmask))
-        have = counts > 0
-        safe = torch.where(have, counts, 1.0)
-        ctimes = seg2(times) / safe
-        cn = seg2(pts[..., 0]) / safe
-        ce = seg2(pts[..., 1]) / safe
-        cd = seg2(pts[..., 2]) / safe
-        npf = torch.clamp(wmask.sum(dim=(1, 2)), min=1.0)
-        cweights = counts / npf[:, None]
-        # broadcast cell means back to the fine grid with the transposes
-        mu = torch.einsum("bcx,bcd,bdy->bxy", mx, ctimes.reshape(bb, ncx, ncy), my)
-        cdur = 4.0 / safe * seg2(torch.abs(times - mu))
-
-        centertime = torch.where(have, ctimes * cweights, 0.0).sum(dim=1)
-
-        # per-cell boxcar time cells (risetime = 0 here): nt cells of equal
-        # weight 1/nt at midpoints of [-dur/2, dur/2]
-        nt_full = torch.where(have, torch.floor(cdur / edt).to(I32) + 1, 0)
-        overflow = torch.clamp(nt_full - nt_cell_max, min=0).amax(dim=1)
-
-        ncell_out = ncell
-        if ncell_budget is not None and ncell_budget < ncell:
-            # actives first, stable (cix-major order preserved among them);
-            # dropped actives are counted in overflow, not silently lost
-            order = torch.argsort(torch.where(have, 0, 1), dim=1, stable=True)[:, :ncell_budget]
-            overflow = torch.maximum(overflow, have.sum(dim=1).to(I32) - ncell_budget)
-            ctimes, cn, ce, cd, cdur, have, cweights, nt_full = (
-                torch.gather(x, 1, order)
-                for x in (ctimes, cn, ce, cd, cdur, have, cweights, nt_full))
-            ncell_out = ncell_budget
-
-        nt = torch.clamp(nt_full, max=nt_cell_max)
-        it = torch.arange(nt_cell_max, dtype=F32, device=dev)
-        ntf = torch.clamp(nt, min=1).to(F32)
-        toff = -cdur[..., None] / 2.0 + cdur[..., None] / ntf[..., None] * (it + 0.5)
-        live = (it < nt[..., None]) & have[..., None]
-        wt = torch.where(live, 1.0 / ntf[..., None], 0.0)
-
-        m = a["m6"][:, None, None, :] * (wt * cweights[..., None])[..., None]
-        t0 = a["time0"][:, None, None]
-        shape = (bb, ncell_out, nt_cell_max)
-        return {
-            "north": cn[..., None].expand(shape).reshape(bb, -1),
-            "east": ce[..., None].expand(shape).reshape(bb, -1),
-            "depth": cd[..., None].expand(shape).reshape(bb, -1),
-            "time": (ctimes[..., None] + toff + t0 - centertime[:, None, None]).reshape(bb, -1),
-            "m": m.reshape(bb, -1, 6),
-            "active": live.reshape(bb, -1),
-            "overflow": overflow,
-        }
 
     def batched(a):
         count("eik.fine_cells", a["first"].shape[0] * nfx * nfy)
+        ctx_arr, sizes = eik_tables.context_on(a["first"].device, ctx)
         with span("kiwi.synth.eik_solve"):
-            speeds = pre(a)
+            speeds = eik_tables.eik_speeds(a, ctx_arr, sizes, static["NF"])
             times = eik_sweep.sweep_solve_batch(speeds, a["delta"], a["first"], a["nukl"],
                                                 n_rounds=n_rounds)
         with span("kiwi.synth.eik_tables"):
-            return post(a, times)
+            return eik_tables.eik_tables(a, times, ctx_arr, sizes, static["NC"], nt_cell_max,
+                                         ncell_budget, effective_dt)
 
     return batched
 
@@ -946,7 +828,7 @@ def discretize_device_batch(static, arrays, effective_dt, ctx, nt_cell_max,
     copied to `device`; tensors (ops/eik_prepare's, already there in the
     discretizer's dtypes) are taken as they are."""
     fn = make_device_discretizer(static, effective_dt, ctx, nt_cell_max, n_rounds,
-                                 ncell_budget=ncell_budget, device=device)
+                                 ncell_budget=ncell_budget)
     adev = {
         k: v if torch.is_tensor(v) else to_device(np.asarray(v), device,
                                                   I32 if v.dtype.kind == "i" else F32)

@@ -13,7 +13,10 @@ same operations in the same order), so they must equal them bit for bit.
 The eikonal preparation kernel rounds as the host's numpy does on x86-64
 (its BLAS's FMAs written out): its sizes must equal the plain version's,
 its float32 arrays lie within one ulp of them (a host whose BLAS rounds a
-product otherwise moves a float64 by an ulp).
+product otherwise moves a float64 by an ulp).  The eikonal speeds kernel
+rounds as its plain version does on the card (bit for bit); the eikonal
+tables kernel sums in float64, its plain version in float32 einsums (1e-6
+of each field's largest magnitude).
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ import torch
 import bilat_cases
 import eik_prepare_cases
 import span_cases
-from kiwi_tpu_torch.ops import bilat_tables, eik_prepare, eik_sweep, float_scan, synth_window
+from kiwi_tpu_torch.ops import (bilat_tables, eik_prepare, eik_sweep, eik_tables, float_scan,
+                                synth_window)
 from kiwi_tpu_torch.sources import bilat
 from kiwi_tpu_torch.sources import eikonal as eiksrc
 
@@ -524,6 +528,136 @@ def test_eik_prepare_on_the_engine_path(cuda_dev):
     got = eng.global_misfits_for_source_batch(batch).cpu().numpy()
     want = eik_prepare_cases.session("cpu").global_misfits_for_source_batch(batch).numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+EIK_TABLE_CASES = ("radius_sweep", "dips", "radii_on_the_grid", "shallow", "oblique",
+                   "mt_eikonal")
+
+
+def _eik_prepared(name, dev, constraints=None):
+    """(static, arrays, context tensor, sizes) of case `name` prepared on the
+    card (under other constraints where given)."""
+    model, rows, ctx, _error = eik_prepare_cases.case(name)
+    if constraints is not None:
+        ctx = eik_prepare_cases.context(constraints)
+    named = eiksrc.named_params_batch(model, rows)
+    summary, arrays = eik_prepare.eik_prepare(eik_prepare.rows_on(named, dev), ctx,
+                                              eik_prepare_cases.EDT)
+    static, _hard = eik_prepare.static_from_summary(summary.cpu().numpy())
+    return (static, arrays, *eik_tables.context_on(dev, ctx))
+
+
+def _eik_solved(name, dev, constraints=None):
+    """_eik_prepared and the times the kernels solve for it."""
+    static, arrays, ctx_arr, sizes = _eik_prepared(name, dev, constraints)
+    speeds = eik_tables.eik_speeds(arrays, ctx_arr, sizes, static["NF"])
+    times = eik_sweep.sweep_solve_batch(speeds, arrays["delta"], arrays["first"], arrays["nukl"],
+                                        n_rounds=2)
+    return static, arrays, ctx_arr, sizes, times
+
+
+@pytest.mark.parametrize("name", EIK_TABLE_CASES)
+def test_eik_speeds_matches_the_plain_version(cuda_dev, name):
+    """The speeds kernel equals the plain torch chain on the card bit for bit
+    (the solve reads every speed), in one launch; two launches give the same
+    bits."""
+    static, arrays, ctx_arr, sizes = _eik_prepared(name, cuda_dev)
+    before = eik_tables.launches["eik_speeds"]
+    got = eik_tables.eik_speeds(arrays, ctx_arr, sizes, static["NF"])
+    again = eik_tables.eik_speeds(arrays, ctx_arr, sizes, static["NF"])
+    torch.cuda.synchronize()
+    assert eik_tables.launches["eik_speeds"] == before + 2
+    want = eik_tables.speeds_reference(arrays, ctx_arr, sizes, static["NF"])
+    assert got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous()
+    g, w = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(g, w), int((g != w).sum())
+    assert torch.equal(g, again.view(torch.int32))
+
+
+@pytest.mark.parametrize("budget", [None, 64])
+@pytest.mark.parametrize("name", EIK_TABLE_CASES)
+def test_eik_tables_matches_the_plain_version(cuda_dev, name, budget):
+    """The tables kernels against the plain torch chain on the card, on the
+    solve's own times.  The kernel sums in float64, the chain's einsums in
+    float32 in another order: north, east, depth, time and m agree at 1e-6
+    of each field's largest magnitude.  The time cells (nt, active, and the
+    overflow count) are equal, except where a coarse cell's duration over
+    the time step lies within 1e-5 of an integer, where that sum order can
+    move the floor: such cells are counted and reported.  Two launches give
+    the same bits."""
+    static, arrays, ctx_arr, sizes, times = _eik_solved(name, cuda_dev)
+    nt_cell_max, edt = 2, eik_prepare_cases.EDT
+    args = (arrays, times, ctx_arr, sizes, static["NC"], nt_cell_max, budget, edt)
+    before = eik_tables.launches["eik_tables"]
+    got = eik_tables.eik_tables(*args)
+    again = eik_tables.eik_tables(*args)
+    torch.cuda.synchronize()
+    assert eik_tables.launches["eik_tables"] == before + 2
+    want = eik_tables.tables_reference(*args)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous(), k
+        bits = (lambda x: x.view(torch.int32)) if w.dtype == torch.float32 else (lambda x: x)
+        assert torch.equal(bits(g), bits(again[k])), k
+
+    # the plain version's coarse cells that sit within 1e-5 of a time-cell
+    # boundary, in the tables' order
+    near = eik_tables.boundary_cells(arrays, times, ctx_arr, sizes, static["NC"], budget, edt)
+    B = near.shape[0]
+    nt_got = got["active"].view(B, -1, nt_cell_max).sum(-1)
+    nt_want = want["active"].view(B, -1, nt_cell_max).sum(-1)
+    apart = nt_got != nt_want
+    print(f"{name}, budget {budget}: {int(near.sum())} cells within 1e-5 of a time-cell "
+          f"boundary, {int(apart.sum())} with another nt")
+    assert not (apart & ~near).any(), int((apart & ~near).sum())
+    same = ~apart[:, :, None].expand(-1, -1, nt_cell_max).reshape(B, -1)
+    assert torch.equal(got["active"][same], want["active"][same])
+    sources_near = near.any(dim=1)
+    assert torch.equal(got["overflow"][~sources_near], want["overflow"][~sources_near])
+    for k in ("north", "east", "depth", "time", "m"):
+        g, w = got[k][same], want[k][same]
+        err = float((g - w).abs().max())
+        assert err <= 1e-6 * float(w.abs().max()), (k, err, float(w.abs().max()))
+    if budget is not None:
+        assert (got["overflow"] > 0).any() == (want["overflow"] > 0).any()
+
+
+@pytest.mark.parametrize("ncons", [0, 1, 4])
+def test_eik_fine_grid_kernels_at_any_constraint_count(cuda_dev, ncons):
+    """The kernels read any number of constraints from shared memory: at 0,
+    1 and 4 constraints the speeds equal the plain version's bits and the
+    tables agree at 1e-6 of each field's largest magnitude, with the same
+    time cells."""
+    far = (np.array([0.0, 0.0, 100000.0]), np.array([0.0, 0.0, 1.0]))  # clips nothing
+    constraints = {0: [], 1: eik_prepare_cases.DEFAULT[:1],
+                   4: eik_prepare_cases.OBLIQUE + [far]}[ncons]
+    static, arrays, ctx_arr, sizes, times = _eik_solved("dips", cuda_dev, constraints)
+    assert sizes[0] == ncons
+    speeds = eik_tables.eik_speeds(arrays, ctx_arr, sizes, static["NF"])
+    want = eik_tables.speeds_reference(arrays, ctx_arr, sizes, static["NF"])
+    assert torch.equal(speeds.view(torch.int32), want.view(torch.int32))
+    args = (arrays, times, ctx_arr, sizes, static["NC"], 2, None, eik_prepare_cases.EDT)
+    got, want = eik_tables.eik_tables(*args), eik_tables.tables_reference(*args)
+    assert torch.equal(got["active"], want["active"])
+    assert torch.equal(got["overflow"], want["overflow"])
+    for k in ("north", "east", "depth", "time", "m"):
+        err = float((got[k] - want[k]).abs().max())
+        assert err <= 1e-6 * float(want[k].abs().max()), (k, err)
+
+
+def test_eik_tables_on_the_engine_path(cuda_dev):
+    """A device discretization on a CUDA engine launches each of the two
+    fine-grid kernels once (eik_speeds, eik_tables) and the solve once."""
+    eng = eik_prepare_cases.session(cuda_dev)
+    batch = eik_prepare_cases.session_batch()
+    eng.global_misfits_for_source_batch(batch)  # calibrates and cross-checks
+    before = {**eik_tables.launches, **eik_sweep.launches}
+    eng.discretize(batch)
+    torch.cuda.synchronize()
+    after = {**eik_tables.launches, **eik_sweep.launches}
+    assert {k: after[k] - before[k] for k in after} == {"eik_speeds": 1, "eik_tables": 1,
+                                                        "eik_sweep": 1}
 
 
 def test_eikonal_crosscheck_raises_on_the_card(cuda_dev, monkeypatch):

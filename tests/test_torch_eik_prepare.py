@@ -207,9 +207,9 @@ def test_zero_radius_batch_takes_the_host_loop(engine):
 
 
 def test_device_discretization_waits(engine, monkeypatch):
-    """A device discretization at a calibrated shape waits for the card once
-    for the prepared batch's summary and 7 times for the discretizer's
-    context (its pageable copies); the 14 prepared arrays are not copied.
+    """A device discretization at a calibrated shape waits for the card once,
+    for the prepared batch's summary; the discretizer reads the session's
+    context as a tensor and copies nothing, nor the 14 prepared arrays.
     Counted by site, as on the card (tests/test_torch_cuda.py), but for the
     plain sweep's diagonal indices, which the kernel has no copies of."""
     from kiwi_tpu_torch.ops import eik_sweep
